@@ -1,0 +1,45 @@
+"""Wrapper of the deblock kernel (csrc/deblock_phase.cu).
+
+Replaces arrow_h264_tpu/ops/pallas/deblock_phase.py::deblock_phase_batch.
+The plain version is ops/deblock.py::deblock_filter_planes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..deblock import TABLE_KEYS, deblock_filter_planes
+from . import LAUNCHES, build, cuda_device, require
+
+_TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
+                 "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
+                 "bs_c": (2, 2, 4), "tc_c": (2, 2, 4, 2), "a_c": (2, 2, 2),
+                 "b_c": (2, 2, 2)}
+
+
+def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
+    """Deblock [B] frames' uint8 planes y [B, H, W], cb/cr [B, H/2, W/2]
+    with the ops.deblock.deblock_tables of the frames.
+
+    CUDA tensors are filtered in place and returned; CPU tensors go
+    through the plain version, which returns new uint8 planes."""
+    dev = cuda_device(y)
+    if dev is None:
+        planes = deblock_filter_planes(y, cb, cr, tables, mb_w, mb_h)
+        return tuple(p.to(torch.uint8) for p in planes)
+    B = y.shape[0]
+    H, W = mb_h * 16, mb_w * 16
+    n = mb_w * mb_h
+    require(y, "y", torch.uint8, (B, H, W), dev)
+    for name, c in (("cb", cb), ("cr", cr)):
+        require(c, name, torch.uint8, (B, H // 2, W // 2), dev)
+    for k in TABLE_KEYS:
+        require(tables[k], k, torch.int32, (B, n) + _TABLE_SHAPES[k], dev)
+    fn = build.function("deblock_phase_launch", 15, 3)
+    ptrs = [p.data_ptr() for p in (y, cb, cr)] + \
+        [tables[k].data_ptr() for k in TABLE_KEYS]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, B, mb_w, mb_h, torch.cuda.current_stream().cuda_stream)
+    build.check("deblock_phase_launch", err)
+    LAUNCHES["deblock_phase"] += 1
+    return y, cb, cr

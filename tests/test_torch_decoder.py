@@ -1,0 +1,67 @@
+"""The port's slice as a whole: arrow_h264_tpu_torch.api.Decoder on the CPU
+decodes real streams byte-identically to the JAX package's Decoder and to
+the libavcodec golden; the committed 1080p smoke stream matches its
+committed golden hashes."""
+
+import hashlib
+import json
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from arrow_h264_tpu.api import Decoder as JaxDecoder
+from arrow_h264_tpu_torch.api import Decoder
+from arrow_h264_tpu_torch.models.pipeline import DevicePipeline
+from tests.torch_ref import decode_port, encode
+from tools import streams
+
+SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
+
+
+def _decode_jax(path: str) -> np.ndarray:
+    return np.stack([np.frombuffer(f.planar(), np.uint8)
+                     for f in JaxDecoder().decode_annexb(
+                         open(path, "rb").read())])
+
+
+@pytest.mark.parametrize("cfg", [1, 2, 4])
+def test_decoder_matches_jax_and_golden(h264ref, tmp_path, cfg):
+    """Config 1 (Baseline intra), 2 (Baseline P, quarter-pel MC), 4 (High:
+    CABAC, 8x8 transform, B-frames, weighted prediction)."""
+    path = encode(tmp_path, cfg, n_frames=5, seed=30 + cfg)
+    golden, _, _ = streams.golden_decode(path)
+    ours = decode_port(path)
+    assert ours.shape == golden.shape
+    for f in range(len(golden)):
+        assert np.array_equal(ours[f], golden[f]), \
+            f"frame {f}: {int((ours[f] != golden[f]).sum())} byte diffs"
+    assert np.array_equal(ours, _decode_jax(path))
+
+
+def test_smoke_stream_golden(h264ref):
+    """The committed smoke stream still decodes (libavcodec) to the
+    committed per-frame MD5s that chip_smoke.py checks the port against."""
+    meta = json.loads(SMOKE.with_suffix(".json").read_text())
+    golden, w, h = streams.golden_decode(str(SMOKE))
+    assert (w, h, len(golden)) == (meta["width"], meta["height"],
+                                   meta["frames"]) == (1920, 1080, 6)
+    assert [hashlib.md5(f.tobytes()).hexdigest() for f in golden] \
+        == meta["md5"]
+
+
+def test_decoder_device_is_explicit():
+    """Decoder() defaults to CUDA and refuses to run without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Decoder()
+    assert Decoder(device="cpu").device == torch.device("cpu")
+
+
+def test_field_sps_not_ported():
+    sps = SimpleNamespace(frame_mbs_only_flag=0)
+    with pytest.raises(NotImplementedError):
+        DevicePipeline(sps, SimpleNamespace(), "cpu")
