@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of the arrow_h264_tpu decoder.
 
-The host half (bitstream, entropy, DPB bookkeeping, frame ABI packing) is
-imported from `arrow_h264_tpu`, whose host modules import no JAX.  The
-device half (residual, motion compensation, intra, deblock, reference
-store) is PyTorch here, with hand-written CUDA kernels for the four stages
-that were Pallas kernels in the JAX package (`ops/kernels`, `csrc/`).
+The package stands alone: it imports torch and numpy, never jax and
+nothing of `arrow_h264_tpu`.  The host half (bitstream, entropy, DPB
+bookkeeping, frame ABI packing, the C++ entropy library in `host/cpp/`)
+is its own copy of the JAX package's host code.  The device half
+(residual, motion compensation, intra, deblock, reference store) is
+PyTorch, with hand-written CUDA kernels for the stages that were Pallas
+kernels in the JAX package (`ops/kernels`, `csrc/`).
 
     from arrow_h264_tpu_torch.api import Decoder
     for frame in Decoder(device="cuda").decode_annexb(data):

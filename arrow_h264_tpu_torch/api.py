@@ -5,9 +5,12 @@
         frame.y, frame.cb, frame.cr, frame.planar()
 
 The host half (bitstream, entropy, DPB bookkeeping, ABI packing) is the
-JAX package's own host code, which imports no JAX; its control loop is
+package's own copy of the JAX package's host code; the control loop is
 carried over from `arrow_h264_tpu.api` with the behaviour unchanged.
-Reconstruction runs in `models.pipeline.DevicePipeline` on `device`.
+Reconstruction runs in `models.pipeline.DevicePipeline` on `device`;
+`order` chooses its intra and deblock kernels ("phase", the default: the
+knight-move wavefront; "raster": one block per stream and plane walks
+the MBs in raster order).
 Progressive Baseline/Main/High streams; interlaced (field) streams raise
 NotImplementedError.
 """
@@ -20,23 +23,36 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from arrow_h264_tpu.bitstream import nal
-from arrow_h264_tpu.bitstream.bits import BitReader, TracingBitReader
-from arrow_h264_tpu.bitstream.params import PPS, SPS, parse_pps, parse_sps
-from arrow_h264_tpu.bitstream.sei import SEIMessage, parse_sei_rbsp
-from arrow_h264_tpu.bitstream.slicehdr import parse_slice_header
-from arrow_h264_tpu.conceal import conceal_abi, nearest_ref_pic, slice_coverage
-from arrow_h264_tpu.dpb import DPB
-from arrow_h264_tpu.host import centropy
-from arrow_h264_tpu.mb.parse import PictureParse
-from arrow_h264_tpu.ops.abi import pack_frame
-from arrow_h264_tpu.oracle.decoder import crop_planes
-from arrow_h264_tpu.trace import (
+from .bitstream import nal
+from .bitstream.bits import BitReader, TracingBitReader
+from .bitstream.params import PPS, SPS, parse_pps, parse_sps
+from .bitstream.sei import SEIMessage, parse_sei_rbsp
+from .bitstream.slicehdr import parse_slice_header
+from .conceal import conceal_abi, nearest_ref_pic, slice_coverage
+from .dpb import DPB
+from .host import centropy
+from .mb.parse import PictureParse
+from .models.pipeline import ORDERS, DevicePipeline
+from .ops.abi import pack_frame
+from .trace import (
     dump_se_log, trace_frame_abi, trace_se_target, trace_slice_header,
     trace_target,
 )
 
-from .models.pipeline import DevicePipeline
+
+def crop_planes(sps: SPS, y: np.ndarray, cb: np.ndarray, cr: np.ndarray):
+    if not sps.frame_cropping_flag:
+        return y, cb, cr
+    # 4:2:0: CropUnitX = 2; CropUnitY = 2 * (2 - frame_mbs_only_flag)
+    # (spec 7.4.2.1.1 — vertical crop units double for interlaced SPS)
+    cu_y = 2 * (2 - sps.frame_mbs_only_flag)
+    l, r_, t, b = (2 * sps.crop_left, 2 * sps.crop_right,
+                   cu_y * sps.crop_top, cu_y * sps.crop_bottom)
+    h, w = y.shape
+    y = y[t:h - b, l:w - r_]
+    cb = cb[t // 2:(h - b) // 2, l // 2:(w - r_) // 2]
+    cr = cr[t // 2:(h - b) // 2, l // 2:(w - r_) // 2]
+    return y, cb, cr
 
 
 @dataclass
@@ -80,12 +96,18 @@ class Decoder:
 
     device: a torch device; "cuda" (the default) raises if no GPU is
     present.  entropy="cpp" uses the native host entropy library, "python"
-    the pure-Python parser.
+    the pure-Python parser.  order: "phase" (default) or "raster", the
+    intra and deblock kernels of models.pipeline.decode_frames_batch_fn.
     """
 
     def __init__(self, device="cuda", entropy: str = "cpp", trace=None,
-                 conceal: bool = False, trace_se=None) -> None:
+                 conceal: bool = False, trace_se=None,
+                 order: str = "phase") -> None:
         self.device = torch.device(device)
+        if order not in ORDERS:
+            raise ValueError(f"order {order!r}: expected one of "
+                             f"{sorted(ORDERS)}")
+        self.order = order
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Decoder(device='cuda'): no CUDA device")
         self._trace = trace_target(trace)
@@ -113,7 +135,8 @@ class Decoder:
         key = (sps.seq_parameter_set_id, pps.pic_parameter_set_id,
                sps.pic_width_in_mbs, sps.pic_height_in_map_units)
         if key not in self._pipelines:
-            self._pipelines[key] = DevicePipeline(sps, pps, self.device)
+            self._pipelines[key] = DevicePipeline(sps, pps, self.device,
+                                                  self.order)
         return self._pipelines[key]
 
     def decode_annexb(self, data: bytes):

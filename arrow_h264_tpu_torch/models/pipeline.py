@@ -6,8 +6,10 @@ Port of `arrow_h264_tpu.models.pipeline`.  Per frame, on the device:
     combine -> intra (kernel K1) -> deblock tables -> deblock (kernel K2)
 
 then `store_ref_fn` writes each reference picture's half-pel planes into
-its slot of the device DPB.  Every function takes a leading stream axis
-[B, ...]; the single-stream `DevicePipeline` runs B = 1.
+its slot of the device DPB.  With order="raster" the intra and deblock
+stages run the raster-order kernels K5/K6 in place of K1/K2; every other
+stage is the same.  Every function takes a leading stream axis [B, ...];
+the single-stream `DevicePipeline` runs B = 1.
 
 The host ships the dense ABI (`ABI_DEVICE_KEYS`) with
 `torch.from_numpy(...).to(device)`; coefficient classes that are all zero
@@ -20,13 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from arrow_h264_tpu.bitstream.params import PPS, SPS
-from arrow_h264_tpu.ops.abi import KIND_P
-
+from ..bitstream.params import PPS, SPS
+from ..ops.abi import KIND_P
 from ..ops.deblock import deblock_tables
 from ..ops.inter import PAD, PADC, halfpel_planes, mc_combine, pad_chroma
 from ..ops.kernels.deblock_phase import deblock_phase
+from ..ops.kernels.deblock_raster import deblock_raster
 from ..ops.kernels.intra_phase import intra_phase
+from ..ops.kernels.intra_raster import intra_raster
 from ..ops.kernels.mc import mc_chroma, mc_luma
 from ..ops.transforms import (
     COEFF_KEYS, _mb_mask_to_plane, make_ws_consts, residual_planes,
@@ -38,6 +41,10 @@ ABI_DEVICE_KEYS = (
     "mb_avail", "pcm", "nz", "tr8", "slice_id", "disable_idc", "alpha_off",
     "beta_off", "mv", "refid", "refslot", "refidx", "wtab", "slogwd",
 )
+
+# order -> (intra, deblock) kernel wrappers; both pairs share one contract
+ORDERS = {"phase": (intra_phase, deblock_phase),
+          "raster": (intra_raster, deblock_raster)}
 
 
 def upload_abi(abi, device) -> dict:
@@ -98,10 +105,13 @@ def _mc_pred(abi: dict, dpb_y, dpb_c, mb_w: int, mb_h: int):
 
 def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
                            mb_h: int, ws4, ws8, cqp_off, inter: bool,
-                           bypass: bool = False):
+                           bypass: bool = False, order: str = "phase"):
     """[B] frames: ABI tensors [B, n, ...] + DPBs [B, S, ...] -> (y, cb,
     cr) uint8 [B, H, W] / [B, H/2, W/2].  inter: whether any MB of the
-    batch is inter (else MC is skipped)."""
+    batch is inter (else MC is skipped).  order: "phase" runs the
+    knight-move wavefront kernels K1/K2, "raster" the raster-order kernels
+    K5/K6 (ORDERS)."""
+    intra, deblock = ORDERS[order]
     res_y, res_cb, res_cr = residual_planes(abi_b, mb_w, mb_h, ws4, ws8,
                                             cqp_off, bypass=bypass)
     init = (None, None, None)
@@ -116,9 +126,9 @@ def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
                             0),
                 torch.where(inter_c, torch.clamp(pred_cr + res_cr, 0, 255),
                             0))
-    y, cb, cr = intra_phase(abi_b, res_y, res_cb, res_cr, *init, mb_w, mb_h)
+    y, cb, cr = intra(abi_b, res_y, res_cb, res_cr, *init, mb_w, mb_h)
     tables = deblock_tables(abi_b, mb_w, mb_h, cqp_off)
-    return deblock_phase(y, cb, cr, tables, mb_w, mb_h)
+    return deblock(y, cb, cr, tables, mb_w, mb_h)
 
 
 def decode_frame_fn(abi: dict, dpb_y, dpb_c, **kw):
@@ -139,7 +149,10 @@ def store_ref_fn(dpb_y, dpb_c, slot: int, y, cb, cr) -> None:
 class DevicePipeline:
     """Per (sps, pps) frame reconstruction + the device DPB slots."""
 
-    def __init__(self, sps: SPS, pps: PPS, device):
+    def __init__(self, sps: SPS, pps: PPS, device, order: str = "phase"):
+        if order not in ORDERS:
+            raise ValueError(f"order {order!r}: expected one of "
+                             f"{sorted(ORDERS)}")
         if not sps.frame_mbs_only_flag:
             raise NotImplementedError(
                 "interlaced SPS (field pictures) is not ported yet")
@@ -155,7 +168,8 @@ class DevicePipeline:
             mb_w=self.mb_w, mb_h=self.mb_h, ws4=ws4.to(self.device),
             ws8=ws8.to(self.device),
             cqp_off=(pps.chroma_qp_index_offset, pps.chroma_qp_offset(1)),
-            bypass=bool(sps.qpprime_y_zero_transform_bypass_flag))
+            bypass=bool(sps.qpprime_y_zero_transform_bypass_flag),
+            order=order)
         self.n_slots = max(2, min(sps.max_num_ref_frames, 32) + 1)
         self.dpb_y, self.dpb_c = dpb_alloc(self.mb_w, self.mb_h,
                                            self.n_slots, self.device)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from arrow_h264_tpu.common.tables import (
+from ..common.tables import (
     ALPHA_TABLE, BETA_TABLE, CHROMA_QP_TABLE, TC0_TABLE,
 )
 

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from arrow_h264_tpu.ops.abi import KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM
-from arrow_h264_tpu.ops.intra_tables import R4, R8, S4, S8, W4, W8
+from .abi import KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM
+from .intra_tables import R4, R8, S4, S8, W4, W8
 
 # substep -> luma 4x4 blocks (x4, y4) with 2*y4 + x4 == s
 _SUBSTEP_BLOCKS = [[(x, y) for y in range(4) for x in range(4)

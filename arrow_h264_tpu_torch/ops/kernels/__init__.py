@@ -7,7 +7,7 @@ run can show that its main path went through the kernels.
 """
 
 LAUNCHES = {"intra_phase": 0, "deblock_phase": 0, "mc_luma": 0,
-            "mc_chroma": 0}
+            "mc_chroma": 0, "intra_raster": 0, "deblock_raster": 0}
 
 
 def reset_launches() -> None:

@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-All of `arrow_h264_tpu_torch/csrc/*.cu` is compiled in one nvcc call for
-sm_90a into `arrow_h264_tpu_torch/_build/`, which git ignores.  The
-library's file name carries a hash of the sources and flags, so an edit
-triggers a rebuild and a stale library never loads.  The build runs on
+Each `arrow_h264_tpu_torch/csrc/*.cu` is compiled for sm_90a by its own
+nvcc process, all started together, and the objects are linked into one
+library in `arrow_h264_tpu_torch/_build/`, which git ignores.  The
+library's file name carries a hash of the flags and of every `.cu` and
+`.cuh` source, so an edit of a kernel or of a header it includes triggers
+a rebuild and a stale library never loads.  The build runs on
 first use (`function`), never at import: importing the wrappers needs
 neither nvcc nor a GPU.
 """
@@ -22,19 +24,20 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None     # wall time of the last nvcc run
 
 
 def sources() -> list[Path]:
+    """The kernels' translation units."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libarrow_h264_kernels_{h.hexdigest()[:16]}.so"
@@ -57,14 +60,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                        *map(str, sources())], capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources(), objs)]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        logs = [p.communicate()[1] for p in procs]
+        errs = [(p.args[-1], log) for p, log in zip(procs, logs)
+                if p.returncode != 0]
+        if errs:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src}:\n{err}" for src, err in errs))
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 

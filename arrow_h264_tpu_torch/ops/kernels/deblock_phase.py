@@ -1,7 +1,9 @@
 """Wrapper of the deblock kernel (csrc/deblock_phase.cu).
 
 Replaces arrow_h264_tpu/ops/pallas/deblock_phase.py::deblock_phase_batch.
-The plain version is ops/deblock.py::deblock_filter_planes.
+The plain version is ops/deblock.py::deblock_filter_planes.  `run_deblock`
+is the launch path that this kernel and the raster-order one
+(deblock_raster.py) share: they take the same arguments.
 """
 
 from __future__ import annotations
@@ -18,8 +20,16 @@ _TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
 
 
 def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
+    """Deblock [B] frames along the knight-move wavefront: one launch per
+    phase (csrc/deblock_phase.cu).  Arguments and result as for
+    run_deblock."""
+    return run_deblock("deblock_phase", y, cb, cr, tables, mb_w, mb_h)
+
+
+def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int):
     """Deblock [B] frames' uint8 planes y [B, H, W], cb/cr [B, H/2, W/2]
-    with the ops.deblock.deblock_tables of the frames.
+    with the ops.deblock.deblock_tables of the frames, with the kernel
+    whose C entry is `name`_launch, counted under LAUNCHES[name].
 
     CUDA tensors are filtered in place and returned; CPU tensors go
     through the plain version, which returns new uint8 planes."""
@@ -31,15 +41,15 @@ def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
     H, W = mb_h * 16, mb_w * 16
     n = mb_w * mb_h
     require(y, "y", torch.uint8, (B, H, W), dev)
-    for name, c in (("cb", cb), ("cr", cr)):
-        require(c, name, torch.uint8, (B, H // 2, W // 2), dev)
+    for arg, c in (("cb", cb), ("cr", cr)):
+        require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
     for k in TABLE_KEYS:
         require(tables[k], k, torch.int32, (B, n) + _TABLE_SHAPES[k], dev)
-    fn = build.function("deblock_phase_launch", 15, 3)
+    fn = build.function(f"{name}_launch", 15, 3)
     ptrs = [p.data_ptr() for p in (y, cb, cr)] + \
         [tables[k].data_ptr() for k in TABLE_KEYS]
     with torch.cuda.device(dev):
         err = fn(*ptrs, B, mb_w, mb_h, torch.cuda.current_stream().cuda_stream)
-    build.check("deblock_phase_launch", err)
-    LAUNCHES["deblock_phase"] += 1
+    build.check(f"{name}_launch", err)
+    LAUNCHES[name] += 1
     return y, cb, cr

@@ -1,16 +1,17 @@
 """Wrapper of the intra kernel (csrc/intra_phase.cu).
 
 Replaces arrow_h264_tpu/ops/pallas/intra_phase.py::intra_phase_batch.  The
-plain version is ops/intra.py::intra_reconstruct.
+plain version is ops/intra.py::intra_reconstruct.  `run_intra` is the
+launch path that this kernel and the raster-order one (intra_raster.py)
+share: they take the same arguments.
 """
 
 from __future__ import annotations
 
 import torch
 
-from arrow_h264_tpu.ops.intra_tables import R4, R8, S4, S8, W4, W8
-
 from ..intra import intra_reconstruct
+from ..intra_tables import R4, R8, S4, S8, W4, W8
 from . import LAUNCHES, build, cuda_device, require
 
 # ABI fields the kernel reads, [B, n, ...] int32
@@ -32,7 +33,17 @@ def _device_tables(device):
 
 def intra_phase(abi, res_y, res_cb, res_cr, init_y, init_cb, init_cr,
                 mb_w: int, mb_h: int):
-    """Intra/PCM reconstruction of [B] frames.
+    """Intra/PCM reconstruction of [B] frames along the knight-move
+    wavefront: one launch per phase (csrc/intra_phase.cu).  Arguments and
+    result as for run_intra."""
+    return run_intra("intra_phase", abi, res_y, res_cb, res_cr, init_y,
+                     init_cb, init_cr, mb_w, mb_h)
+
+
+def run_intra(name: str, abi, res_y, res_cb, res_cr, init_y, init_cb,
+              init_cr, mb_w: int, mb_h: int):
+    """Intra/PCM reconstruction of [B] frames with the kernel whose C
+    entry is `name`_launch, counted under LAUNCHES[name].
 
     abi: dict with INTRA_ABI_KEYS, [B, n, ...] int32.  res_*: int32
     residual planes [B, H, W] / [B, H/2, W/2].  init_*: planes of the same
@@ -56,20 +67,20 @@ def intra_phase(abi, res_y, res_cb, res_cr, init_y, init_cb, init_cr,
     for k in INTRA_ABI_KEYS:
         require(abi[k], k, torch.int32, (B, n) + _ABI_SHAPES[k], dev)
     require(res_y, "res_y", torch.int32, (B, H, W), dev)
-    for name, r in (("res_cb", res_cb), ("res_cr", res_cr)):
-        require(r, name, torch.int32, (B, H // 2, W // 2), dev)
+    for arg, r in (("res_cb", res_cb), ("res_cr", res_cr)):
+        require(r, arg, torch.int32, (B, H // 2, W // 2), dev)
     # the kernel writes the intra MBs into copies of the init planes
     y, cb, cr = (p.to(device=dev, dtype=torch.uint8, copy=True)
                  .contiguous() for p in (init_y, init_cb, init_cr))
     require(y, "init_y", torch.uint8, (B, H, W), dev)
-    for name, c in (("init_cb", cb), ("init_cr", cr)):
-        require(c, name, torch.uint8, (B, H // 2, W // 2), dev)
-    fn = build.function("intra_phase_launch", 20, 3)
+    for arg, c in (("init_cb", cb), ("init_cr", cr)):
+        require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
+    fn = build.function(f"{name}_launch", 20, 3)
     tabs = _device_tables(dev)
     ptrs = [abi[k].data_ptr() for k in INTRA_ABI_KEYS] + \
         [t.data_ptr() for t in (res_y, res_cb, res_cr, y, cb, cr) + tabs]
     with torch.cuda.device(dev):
         err = fn(*ptrs, B, mb_w, mb_h, torch.cuda.current_stream().cuda_stream)
-    build.check("intra_phase_launch", err)
-    LAUNCHES["intra_phase"] += 1
+    build.check(f"{name}_launch", err)
+    LAUNCHES[name] += 1
     return y, cb, cr

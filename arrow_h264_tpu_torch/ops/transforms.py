@@ -1,9 +1,9 @@
 """Residual stage: dequantisation and inverse transforms (PyTorch).
 
 Port of `arrow_h264_tpu.ops.transforms`: the same integer formulas with
-arithmetic shifts, bit-exact with the JAX package and with
-`arrow_h264_tpu.oracle.transforms`.  Every function takes a leading stream
-axis: ABI tensors are [B, n, ...] and planes [B, H, W].  There is no
+arithmetic shifts, bit-exact with the JAX package and with its numpy
+oracle (`arrow_h264_tpu.oracle.transforms`).  Every function takes a
+leading stream axis: ABI tensors are [B, n, ...] and planes [B, H, W].  There is no
 dependency between macroblocks here, so this stays plain PyTorch on every
 device.
 
@@ -16,15 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from arrow_h264_tpu.common.tables import (
-    CHROMA_QP_TABLE, NORM_ADJUST_4x4, NORM_ADJUST_8x8,
+from ..common.tables import (
+    CHROMA_QP_TABLE, NORM_ADJUST_4x4, NORM_ADJUST_8x8, ZIGZAG_4x4, ZIGZAG_8x8,
 )
-from arrow_h264_tpu.ops.abi import (
-    KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM,
-)
-from arrow_h264_tpu.oracle.transforms import (
-    weight_scale_raster_4x4, weight_scale_raster_8x8,
-)
+from .abi import KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM
 
 _CQP = torch.tensor(CHROMA_QP_TABLE, dtype=torch.int32)
 
@@ -341,6 +336,20 @@ def residual_planes(abi, mb_w: int, mb_h: int, ws4, ws8, cqp_off=(0, 0),
             plane_c = torch.where(is_pcm_c, pcm_c, plane_c)
         res_c.append(plane_c)
     return res_y, res_c[0], res_c[1]
+
+
+def weight_scale_raster_4x4(weight_scale_zz) -> np.ndarray:
+    ws = np.zeros((4, 4), np.int32)
+    for k, pos in enumerate(ZIGZAG_4x4):
+        ws[pos // 4, pos % 4] = weight_scale_zz[k]
+    return ws
+
+
+def weight_scale_raster_8x8(weight_scale_zz) -> np.ndarray:
+    ws = np.zeros((8, 8), np.int32)
+    for k, pos in enumerate(ZIGZAG_8x8):
+        ws[pos // 8, pos % 8] = weight_scale_zz[k]
+    return ws
 
 
 def make_ws_consts(scaling_4x4, scaling_8x8):

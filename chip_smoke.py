@@ -4,15 +4,29 @@
 
 Phases (each prints a line; any failure exits non-zero):
   1. device   require CUDA; print the card (nvidia-smi) and CUDA version
-  2. build    compile arrow_h264_tpu_torch/csrc/*.cu with nvcc (sm_90a)
+  2. build    compile arrow_h264_tpu_torch/csrc/*.cu with nvcc (sm_90a),
+              one nvcc per source, all started together
   3. kernels  each kernel against its plain PyTorch version on the card at
-              1080p (mb 120 x 68), exact equality, with CUDA-event times
+              1080p (mb 120 x 68), exact equality, with CUDA-event times;
+              the raster-order kernels K5/K6 also against K1/K2; K1/K5
+              also on a random intra ABI of every MB kind over random
+              init planes (the JSON keeps the synthetic_abi numbers)
   4. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
-              tests/data/smoke_1080p_high.264; every frame's MD5 must equal
-              the committed libavcodec golden, and every kernel must have
-              launched in that decode
+              tests/data/smoke_1080p_high.264 twice, with order="phase"
+              (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
+              frame's MD5 must equal the committed libavcodec golden, and
+              every kernel of each path must have launched in its decode
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
+
+Each kernel's `bound_ms` is the least time the card could take for the
+work of the timed call: the larger of its bytes over 3.35 TB/s and its
+int32 operations over 67 T/s (the H100's published rates: HBM, and
+float32 outside the tensor cores, which no int32 rate exceeds).  Bytes
+count each input the work needs read once and each output written once,
+from this run's inputs (see the *_need functions).  No single PyTorch
+call computes H.264 intra prediction, the deblocking filter or the
+quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +46,8 @@ STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
 MB_W, MB_H = 120, 68          # 1920x1088 coded
 SEED = 0
 KERNEL_REPS = 20
+HBM_BYTES_S = 3.35e12          # H100 SXM device memory
+CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
 
 def log(phase: str, msg: str) -> None:
@@ -51,6 +67,65 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms for nbytes moved and ops done, which of the two bounds)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / CORE_OPS_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# int32 ABI words an MB of each kind (I4x4, I8x8, I16, PCM) reads besides
+# `kind`: mb_avail (3, chroma), chroma_mode (but PCM), then
+# i4_modes + i4_avail, i8_modes + i8_avail, or i16_mode
+ABI_WORDS = (3 + 1 + 16 + 64, 3 + 1 + 4 + 16, 3 + 1 + 1, 3)
+
+
+def intra_need(a, res, init=None) -> tuple[float, float]:
+    """Bytes and operations of intra reconstruction: `kind` of every MB,
+    the other ABI fields each intra MB's kind reads (ABI_WORDS), the
+    prediction tables, the residual of the intra MBs and the init samples
+    of the other MBs read once, the uint8 planes written once; per intra
+    luma sample 2 ops per directional tap (13 for 4x4, 25 for 8x8) plus
+    the clip and residual add, and a few per chroma sample."""
+    from arrow_h264_tpu_torch.ops.intra_tables import R4, R8, S4, S8, W4, W8
+    kind = a["kind"]
+    counts = [int((kind == k).sum()) for k in range(4)]
+    n, n_intra = kind.numel(), sum(counts)
+    byts = 4 * (n + sum(c * w for c, w in zip(counts, ABI_WORDS))) \
+        + sum(t.nbytes for t in (W4, S4, R4, W8, S8, R8)) \
+        + nbytes(*res) * n_intra / n \
+        + (0 if init is None else nbytes(*init) * (n - n_intra) / n) \
+        + sum(r.numel() for r in res)           # uint8 planes out
+    ops = 256 * (counts[0] * 30 + counts[1] * 54 + counts[2] * 6 + counts[3]) \
+        + 128 * 6 * n_intra
+    return byts, ops
+
+
+def deblock_need(tables, planes) -> tuple[float, float]:
+    """Bytes and operations of deblocking: the tables read once, and the
+    samples of the edges that bS > 0 filters read and written once, taken
+    in proportion to those edges; ~40 ops per filtered line of an edge."""
+    bs = [tables[k] for k in ("bs_v", "bs_h", "bs_c")]
+    frac = sum(int((b > 0).sum()) for b in bs) / sum(b.numel() for b in bs)
+    lines = 4 * sum(int((tables[k] > 0).sum()) for k in ("bs_v", "bs_h")) \
+        + 2 * 2 * int((tables["bs_c"] > 0).sum())
+    return nbytes(*tables.values()) + 2 * frac * nbytes(*planes), 40 * lines
+
+
+def mc_need(mv, rs, out) -> tuple[float, float]:
+    """Bytes and operations of MC: MVs and slots read once, at least one
+    reference byte per predicted sample and list, the prediction written
+    once; ~12 ops per predicted sample and list (the quarter-sample
+    average of two half-sample planes and its addressing)."""
+    used = int((rs >= 0).sum())                 # (4x4 block, list) pairs
+    per_pair = out.numel() // rs.numel()        # samples of one pair
+    return nbytes(mv, rs, out) + used * per_pair, 12 * used * per_pair
 
 
 def compare(name: str, got, want) -> int:
@@ -93,9 +168,13 @@ def main() -> None:
     from arrow_h264_tpu_torch.ops.inter import mc_chroma_plain, mc_luma_plain
     from arrow_h264_tpu_torch.ops.kernels import build
     from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
+    from arrow_h264_tpu_torch.ops.kernels.deblock_raster import deblock_raster
     from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
+    from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
     from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
-    from arrow_h264_tpu_torch.ops.synthetic import synthetic_batch
+    from arrow_h264_tpu_torch.ops.synthetic import (
+        random_intra_abi, synthetic_batch,
+    )
     from arrow_h264_tpu_torch.ops.transforms import (
         make_ws_consts, residual_planes,
     )
@@ -113,31 +192,48 @@ def main() -> None:
                                                   [[16] * 64] * 2))
     results = {}
 
-    def record(key, name, src, replaces, err, ms, plain_ms, note):
+    def record(key, name, src, replaces, err, ms, plain_ms, need, note):
+        bound_ms, bound_by = bound(*need)
         log("kernels", f"{name} {note}: equal, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         results.setdefault(key, dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None))
 
-    # K1 + K2 on synthetic I (all intra) and P (inter MVs: bS 0..2) ABIs
+    # K1/K5 + K2/K6 on synthetic I (all intra) and P (inter MVs: bS 0..2)
+    # ABIs; each pair against the plain version and against each other
+    intra_kernels = (
+        ("intra_phase", intra_phase, "K1", "intra_phase.cu",
+         "arrow_h264_tpu/ops/pallas/intra_phase.py:694"),
+        ("intra_raster", intra_raster, "K5", "intra_raster.cu",
+         "arrow_h264_tpu/ops/pallas/intra_kernel.py:355"))
+    deblock_kernels = (
+        ("deblock_phase", deblock_phase, "K2", "deblock_phase.cu",
+         "arrow_h264_tpu/ops/pallas/deblock_phase.py:395"),
+        ("deblock_raster", deblock_raster, "K6", "deblock_raster.cu",
+         "arrow_h264_tpu/ops/pallas/deblock_kernel.py:287"))
     for note, inter in (("synthetic_abi", False), ("synthetic_abi_p", True)):
         _, a = synthetic_batch(MB_W, MB_H, SEED, dev, inter=inter,
                                **({"bi_frac": 0.3} if inter else {}))
         res = residual_planes(a, MB_W, MB_H, ws4, ws8)
         if note == "synthetic_abi":
-            planes = intra_phase(a, *res, None, None, None, MB_W, MB_H)
-            torch.cuda.synchronize()
-            want = intra_reconstruct(a, *res, MB_W, MB_H)
-            err = compare("intra_phase", planes,
-                          tuple(p.to(torch.uint8) for p in want))
-            ms = cuda_ms(lambda: intra_phase(a, *res, None, None, None,
-                                             MB_W, MB_H), KERNEL_REPS)
+            want = tuple(p.to(torch.uint8)
+                         for p in intra_reconstruct(a, *res, MB_W, MB_H))
             plain = cuda_ms(lambda: intra_reconstruct(a, *res, MB_W, MB_H), 1)
-            record("intra_phase", "intra_phase (K1)",
-                   "arrow_h264_tpu_torch/csrc/intra_phase.cu",
-                   "arrow_h264_tpu/ops/pallas/intra_phase.py:694",
-                   err, ms, plain, note)
+            outs = []
+            for key, fn, kid, src, replaces in intra_kernels:
+                got = fn(a, *res, None, None, None, MB_W, MB_H)
+                torch.cuda.synchronize()
+                err = compare(key, got, want)
+                ms = cuda_ms(lambda: fn(a, *res, None, None, None,
+                                        MB_W, MB_H), KERNEL_REPS)
+                record(key, f"{key} ({kid})",
+                       f"arrow_h264_tpu_torch/csrc/{src}", replaces, err, ms,
+                       plain, intra_need(a, res), note)
+                outs.append(got)
+            compare("intra_raster vs intra_phase", outs[1], outs[0])
+            planes = outs[0]
         else:                        # mid-grey planes with texture
             g = torch.Generator(device=dev).manual_seed(SEED)
             planes = tuple(torch.randint(96, 160, s, generator=g, device=dev,
@@ -145,20 +241,53 @@ def main() -> None:
                            for s in ((1, H, W), (1, H // 2, W // 2),
                                      (1, H // 2, W // 2)))
         tables = deblock_tables(a, MB_W, MB_H)
-        got = deblock_phase(*(p.clone() for p in planes), tables, MB_W, MB_H)
-        torch.cuda.synchronize()
-        want = deblock_filter_planes(*planes, tables, MB_W, MB_H)
-        err = compare("deblock_phase", got,
-                      tuple(p.to(torch.uint8) for p in want))
-        work = tuple(p.clone() for p in planes)
-        ms = cuda_ms(lambda: deblock_phase(*work, tables, MB_W, MB_H),
-                     KERNEL_REPS)
+        want = tuple(p.to(torch.uint8)
+                     for p in deblock_filter_planes(*planes, tables,
+                                                    MB_W, MB_H))
         plain = cuda_ms(lambda: deblock_filter_planes(*planes, tables,
                                                       MB_W, MB_H), 1)
-        record("deblock_phase", "deblock_phase (K2)",
-               "arrow_h264_tpu_torch/csrc/deblock_phase.cu",
-               "arrow_h264_tpu/ops/pallas/deblock_phase.py:395",
-               err, ms, plain, note)
+        outs = []
+        for key, fn, kid, src, replaces in deblock_kernels:
+            got = fn(*(p.clone() for p in planes), tables, MB_W, MB_H)
+            torch.cuda.synchronize()
+            err = compare(key, got, want)
+            work = tuple(p.clone() for p in planes)
+            ms = cuda_ms(lambda: fn(*work, tables, MB_W, MB_H), KERNEL_REPS)
+            record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
+                   replaces, err, ms, plain, deblock_need(tables, planes),
+                   note)
+            outs.append(got)
+        compare("deblock_raster vs deblock_phase", outs[1], outs[0])
+
+    # K1/K5 on a random intra ABI of every kind (I4x4, I8x8, I16, PCM with
+    # raw samples 0..255 as residual, and inter MBs that the kernels skip
+    # and read as neighbours from random init planes)
+    ra = {k: torch.from_numpy(v).to(dev)[None]
+          for k, v in random_intra_abi(MB_W, MB_H, SEED + 4).items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shapes = ((1, H, W), (1, H // 2, W // 2), (1, H // 2, W // 2))
+    pcm = (ra["kind"].view(1, MB_H, MB_W) == 3) \
+        .repeat_interleave(16, 1).repeat_interleave(16, 2)
+    res = [torch.randint(-300, 300, s, generator=g, device=dev,
+                         dtype=torch.int32) for s in shapes]
+    res = [torch.where(m, r.remainder(256), r)
+           for r, m in zip(res, (pcm, pcm[:, ::2, ::2], pcm[:, ::2, ::2]))]
+    init = [torch.randint(0, 256, s, generator=g, device=dev,
+                          dtype=torch.int32) for s in shapes]
+    want = tuple(p.to(torch.uint8)
+                 for p in intra_reconstruct(ra, *res, MB_W, MB_H, *init))
+    plain = cuda_ms(lambda: intra_reconstruct(ra, *res, MB_W, MB_H, *init), 1)
+    outs = []
+    for key, fn, kid, src, replaces in intra_kernels:
+        got = fn(ra, *res, *init, MB_W, MB_H)
+        torch.cuda.synchronize()
+        err = compare(key, got, want)
+        ms = cuda_ms(lambda: fn(ra, *res, *init, MB_W, MB_H), KERNEL_REPS)
+        record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
+               replaces, err, ms, plain, intra_need(ra, res, init),
+               "random_intra_abi")
+        outs.append(got)
+    compare("intra_raster vs intra_phase", outs[1], outs[0])
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
     # wild MVs (+-512 quarter samples)
@@ -187,6 +316,7 @@ def main() -> None:
             got = kern(dpb, mv, rs, MB_W, MB_H)
             torch.cuda.synchronize()
             err = compare(key, got, plain_fn(dpb, mv, rs, MB_W, MB_H))
+            need = mc_need(mv, rs, got)
             ms = cuda_ms(lambda: kern(dpb, mv, rs, MB_W, MB_H), KERNEL_REPS)
             plain = cuda_ms(lambda: plain_fn(dpb, mv, rs, MB_W, MB_H),
                             KERNEL_REPS)
@@ -194,43 +324,56 @@ def main() -> None:
                    "arrow_h264_tpu_torch/csrc/mc.cu",
                    "arrow_h264_tpu/ops/pallas/mc_kernel.py:"
                    + ("460" if key == "mc_luma" else "505"),
-                   err, ms, plain, note)
+                   err, ms, plain, need, note)
 
-    # ---- the main path: decode the committed 1080p High stream
+    # ---- the main paths: decode the committed 1080p High stream with each
+    # order of the intra and deblock kernels
     golden = json.loads(STREAM.with_suffix(".json").read_text())
     data = STREAM.read_bytes()
 
-    def decode():
-        dec = Decoder(device="cuda")
+    paths = {"phase": ("intra_phase", "deblock_phase", "mc_luma",
+                        "mc_chroma"),
+             "raster": ("intra_raster", "deblock_raster", "mc_luma",
+                        "mc_chroma")}
+
+    def decode(order):
+        dec = Decoder(device="cuda", order=order)
         t = time.perf_counter()
         md5 = [hashlib.md5(f.planar()).hexdigest()
                for f in dec.decode_annexb(data)]
         torch.cuda.synchronize()
         return dec, md5, time.perf_counter() - t
 
-    dec, md5, cold_s = decode()                 # warm-up: first-call costs
-    kernels.reset_launches()
-    dec, md5, wall_s = decode()
-    launches = dict(kernels.LAUNCHES)
-    if dec.entropy != "cpp":
-        sys.exit(f"decode: host entropy is {dec.entropy!r}, not the C++ "
-                 "library")
-    if md5 != golden["md5"]:
-        bad = [i for i, (a, b) in enumerate(zip(md5, golden["md5"]))
-               if a != b]
-        sys.exit(f"decode: {len(md5)} frames, golden {len(golden['md5'])}; "
-                 f"MD5 mismatch at frames {bad}")
-    if not all(launches.values()):
-        sys.exit(f"decode: a kernel never launched: {launches}")
-    log("decode", f"{len(md5)} frames {golden['width']}x{golden['height']} "
-        f"MD5 == libavcodec golden; {wall_s:.3f} s wall, "
-        f"{len(md5) / wall_s:.3f} fps (first pass {cold_s:.3f} s) on "
-        f"{smi}; launches {launches}; stats {dec.stats.as_dict()}")
+    launches = {}
+    for order, path in paths.items():
+        _, _, cold_s = decode(order)            # warm-up: first-call costs
+        kernels.reset_launches()
+        dec, md5, wall_s = decode(order)
+        launches[order] = dict(kernels.LAUNCHES)
+        if dec.entropy != "cpp":
+            sys.exit(f"decode: host entropy is {dec.entropy!r}, not the C++ "
+                     "library")
+        if md5 != golden["md5"]:
+            bad = [i for i, (a, b) in enumerate(zip(md5, golden["md5"]))
+                   if a != b]
+            sys.exit(f"decode {order}: {len(md5)} frames, golden "
+                     f"{len(golden['md5'])}; MD5 mismatch at frames {bad}")
+        ran = {k for k, v in launches[order].items() if v}
+        if ran != set(path):
+            sys.exit(f"decode {order}: launched {sorted(ran)}, expected "
+                     f"{sorted(path)}: {launches[order]}")
+        log("decode", f"order={order}: {len(md5)} frames "
+            f"{golden['width']}x{golden['height']} MD5 == libavcodec golden; "
+            f"{wall_s:.3f} s wall, {len(md5) / wall_s:.3f} fps (first pass "
+            f"{cold_s:.3f} s) on {smi}; launches {launches[order]}; stats "
+            f"{dec.stats.as_dict()}")
 
-    if "jax" in sys.modules:
-        sys.exit("the port imported jax")
+    if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
+                                   for m in sys.modules):
+        sys.exit("the port imported jax or the JAX package")
     for key, r in results.items():
-        r["launches"] = launches[key]
+        r["launches"] = launches["raster" if key.endswith("_raster")
+                                 else "phase"][key]
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,19 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from arrow_h264_tpu.api import Decoder as JaxDecoder
 from arrow_h264_tpu_torch.api import Decoder
 from arrow_h264_tpu_torch.models.pipeline import DevicePipeline
-from tests.torch_ref import decode_port, encode
+from tests.torch_ref import decode_jax, decode_port, encode
 from tools import streams
 
 SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
-
-
-def _decode_jax(path: str) -> np.ndarray:
-    return np.stack([np.frombuffer(f.planar(), np.uint8)
-                     for f in JaxDecoder().decode_annexb(
-                         open(path, "rb").read())])
 
 
 @pytest.mark.parametrize("cfg", [1, 2, 4])
@@ -38,7 +31,7 @@ def test_decoder_matches_jax_and_golden(h264ref, tmp_path, cfg):
     for f in range(len(golden)):
         assert np.array_equal(ours[f], golden[f]), \
             f"frame {f}: {int((ours[f] != golden[f]).sum())} byte diffs"
-    assert np.array_equal(ours, _decode_jax(path))
+    assert np.array_equal(ours, decode_jax(path))
 
 
 def test_smoke_stream_golden(h264ref):
@@ -59,6 +52,12 @@ def test_decoder_device_is_explicit():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Decoder()
     assert Decoder(device="cpu").device == torch.device("cpu")
+
+
+def test_decoder_order_checked_at_construction():
+    with pytest.raises(ValueError, match="order 'bogus'"):
+        Decoder(device="cpu", order="bogus")
+    assert Decoder(device="cpu", order="raster").order == "raster"
 
 
 def test_field_sps_not_ported():

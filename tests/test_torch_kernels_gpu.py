@@ -22,7 +22,9 @@ from arrow_h264_tpu_torch.ops.deblock import (
 from arrow_h264_tpu_torch.ops.inter import mc_chroma_plain, mc_luma_plain
 from arrow_h264_tpu_torch.ops.intra import intra_reconstruct
 from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
+from arrow_h264_tpu_torch.ops.kernels.deblock_raster import deblock_raster
 from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
+from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
 from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
 from arrow_h264_tpu_torch.ops.synthetic import (
     random_intra_abi, synthetic_batch,
@@ -35,6 +37,7 @@ pytestmark = pytest.mark.cuda
 
 SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
 SIZES = [(7, 5), (22, 18)]            # ragged grid edges; CIF
+RASTER_SIZES = [(7, 5), (120, 68)]     # ragged grid edges; 1080p
 
 
 @pytest.fixture
@@ -77,6 +80,34 @@ def test_intra_and_deblock_kernels(dev, mb_w, mb_h, inter):
     _equal(deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h), want)
 
 
+@pytest.mark.parametrize("mb_w,mb_h", RASTER_SIZES)
+@pytest.mark.parametrize("inter", [False, True])
+def test_raster_kernels(dev, mb_w, mb_h, inter):
+    """K5/K6 against the plain versions and against K1/K2 on the same
+    inputs."""
+    _, a = synthetic_batch(mb_w, mb_h, 4, dev, inter=inter,
+                           **({"intra_frac": 0.4, "bi_frac": 0.3}
+                              if inter else {}))
+    res = _residual(a, mb_w, mb_h, dev)
+    H, W = mb_h * 16, mb_w * 16
+    g = torch.Generator(device=dev).manual_seed(4)
+    init = [torch.randint(0, 256, s, generator=g, device=dev,
+                          dtype=torch.int32)
+            for s in ((1, H, W), (1, H // 2, W // 2), (1, H // 2, W // 2))]
+    n0 = dict(kernels.LAUNCHES)
+    got = intra_raster(a, *res, *init, mb_w, mb_h)
+    assert kernels.LAUNCHES["intra_raster"] == n0["intra_raster"] + 1
+    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
+    _equal(got, intra_phase(a, *res, *init, mb_w, mb_h))
+    tables = deblock_tables(a, mb_w, mb_h, (1, -1))
+    want = deblock_filter_planes(*got, tables, mb_w, mb_h)
+    filtered = deblock_raster(*(p.clone() for p in got), tables, mb_w, mb_h)
+    assert kernels.LAUNCHES["deblock_raster"] == n0["deblock_raster"] + 1
+    _equal(filtered, want)
+    _equal(filtered, deblock_phase(*(p.clone() for p in got), tables,
+                                   mb_w, mb_h))
+
+
 @pytest.mark.parametrize("mb_w,mb_h", [(5, 4), (9, 2)])
 def test_kernels_random_batch(dev, mb_w, mb_h):
     """Three streams of random intra ABIs (random modes and availability)
@@ -102,6 +133,7 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
             .to(dev) for s in shapes]
     got = intra_phase(a, *res, *init, mb_w, mb_h)
     _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
+    _equal(intra_raster(a, *res, *init, mb_w, mb_h), got)
 
     def t(lo, hi, *shape):
         return torch.from_numpy(rng.integers(lo, hi, (B, n) + shape)
@@ -120,6 +152,8 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
     tables["bs_c"].view(B, mb_h, mb_w, 2, 2, 4)[:, 0, :, 1, 0] = 0
     want = deblock_filter_planes(*got, tables, mb_w, mb_h)
     _equal(deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h), want)
+    _equal(deblock_raster(*(p.clone() for p in got), tables, mb_w, mb_h),
+           want)
 
 
 @pytest.mark.parametrize("mb_w,mb_h", SIZES)
@@ -158,11 +192,16 @@ def test_wrappers_refuse_bad_tensors(dev):
         mc_luma(dy[None], a["mv"].transpose(2, 3), a["refslot"], 7, 5)
 
 
-def test_decoder_cuda_smoke_stream(dev):
+@pytest.mark.parametrize("order,path", [
+    ("phase", {"intra_phase", "deblock_phase", "mc_luma", "mc_chroma"}),
+    ("raster", {"intra_raster", "deblock_raster", "mc_luma", "mc_chroma"})])
+def test_decoder_cuda_smoke_stream(dev, order, path):
     from arrow_h264_tpu_torch.api import Decoder
     meta = json.loads(SMOKE.with_suffix(".json").read_text())
     kernels.reset_launches()
     md5 = [hashlib.md5(f.planar()).hexdigest()
-           for f in Decoder(device=dev).decode_annexb(SMOKE.read_bytes())]
+           for f in Decoder(device=dev, order=order).decode_annexb(
+               SMOKE.read_bytes())]
     assert md5 == meta["md5"]
-    assert all(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == path, \
+        kernels.LAUNCHES

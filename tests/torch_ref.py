@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from arrow_h264_tpu.api import Decoder as JaxDecoder
 from arrow_h264_tpu.ops import deblock as jdeblock
 from arrow_h264_tpu.ops import intra as jintra
 from arrow_h264_tpu.ops import transforms as jtransforms
@@ -112,11 +113,12 @@ def encode(tmp_path, cfg, n_frames: int = 3, seed: int = 7,
     return path
 
 
-def decode_port(path: str, capture: list | None = None) -> np.ndarray:
+def decode_port(path: str, capture: list | None = None,
+                order: str = "phase") -> np.ndarray:
     """Decode with the port on the CPU -> [frames, bytes] uint8.  With
     `capture`, append (host ABI copy, pipeline) for each decoded picture,
     the DPB as it was before that picture was stored."""
-    dec = Decoder(device="cpu")
+    dec = Decoder(device="cpu", order=order)
     if capture is not None:
         orig = tpipeline.DevicePipeline.decode_frame
 
@@ -134,3 +136,10 @@ def decode_port(path: str, capture: list | None = None) -> np.ndarray:
         if capture is not None:
             tpipeline.DevicePipeline.decode_frame = orig
     return np.stack(frames)
+
+
+def decode_jax(path: str) -> np.ndarray:
+    """Decode with the JAX package's Decoder -> [frames, bytes] uint8."""
+    return np.stack([np.frombuffer(f.planar(), np.uint8)
+                     for f in JaxDecoder().decode_annexb(
+                         open(path, "rb").read())])
