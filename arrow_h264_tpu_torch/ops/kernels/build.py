@@ -43,7 +43,8 @@ def lib_path() -> Path:
     return BUILD_DIR / f"libarrow_h264_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler."""
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
@@ -53,22 +54,18 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or under $CUDA_HOME/bin)")
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
-    global build_seconds
-    out = lib_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+def compile_library(srcs: list[Path], out: Path) -> None:
+    """Compile `srcs` with NVCC_FLAGS, one nvcc per source, all started
+    together, and link the objects into the shared library `out`."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([cc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(sources(), objs)]
-    tmp = BUILD_DIR / f"{tag}.tmp"
+             for src, obj in zip(srcs, objs)]
+    tmp = out.parent / f"{tag}.tmp"
     try:
         logs = [p.communicate()[1] for p in procs]
         errs = [(p.args[-1], log) for p, log in zip(procs, logs)
@@ -76,7 +73,7 @@ def build() -> Path:
         if errs:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{src}:\n{err}" for src, err in errs))
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+        r = subprocess.run([cc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                             *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
@@ -85,13 +82,29 @@ def build() -> Path:
     finally:
         for f in objs + [tmp]:
             f.unlink(missing_ok=True)
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global build_seconds
+    out = lib_path()
+    if out.exists():
+        return out
+    t0 = time.perf_counter()
+    compile_library(sources(), out)
     build_seconds = time.perf_counter() - t0
     return out
 
 
-def load() -> ctypes.CDLL:
+def load(path: Path | None = None) -> ctypes.CDLL:
+    """The library the wrappers call: the one built from the sources
+    (`build`), or from now on the library at `path`, which must export
+    the same C entries (a variant of the kernels, as in
+    tools/wavefront_probe.py)."""
     global _lib
-    if _lib is None:
+    if path is not None:
+        _lib = ctypes.CDLL(str(path))
+    elif _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
 

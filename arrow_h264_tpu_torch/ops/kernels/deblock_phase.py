@@ -12,6 +12,7 @@ import torch
 
 from ..deblock import TABLE_KEYS, deblock_filter_planes
 from . import LAUNCHES, build, cuda_device, require
+from .wavefront import wavefront_args
 
 _TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
                  "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
@@ -20,16 +21,20 @@ _TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
 
 
 def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
-    """Deblock [B] frames along the knight-move wavefront: one launch per
-    phase (csrc/deblock_phase.cu).  Arguments and result as for
-    run_deblock."""
-    return run_deblock("deblock_phase", y, cb, cr, tables, mb_w, mb_h)
+    """Deblock [B] frames along the knight-move wavefront: one persistent
+    launch with per-MB ready flags (csrc/deblock_phase.cu).  Arguments
+    and result as for run_deblock."""
+    extra = wavefront_args(y.shape[0], mb_w, mb_h, y.device) \
+        if cuda_device(y) else ()
+    return run_deblock("deblock_phase", y, cb, cr, tables, mb_w, mb_h, extra)
 
 
-def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int):
+def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int,
+                extra: tuple = ()):
     """Deblock [B] frames' uint8 planes y [B, H, W], cb/cr [B, H/2, W/2]
     with the ops.deblock.deblock_tables of the frames, with the kernel
-    whose C entry is `name`_launch, counted under LAUNCHES[name].
+    whose C entry is `name`_launch, counted under LAUNCHES[name]; `extra`
+    are tensors that kernel takes after the tables.
 
     CUDA tensors are filtered in place and returned; CPU tensors go
     through the plain version, which returns new uint8 planes."""
@@ -45,9 +50,10 @@ def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int):
         require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
     for k in TABLE_KEYS:
         require(tables[k], k, torch.int32, (B, n) + _TABLE_SHAPES[k], dev)
-    fn = build.function(f"{name}_launch", 15, 3)
     ptrs = [p.data_ptr() for p in (y, cb, cr)] + \
-        [tables[k].data_ptr() for k in TABLE_KEYS]
+        [tables[k].data_ptr() for k in TABLE_KEYS] + \
+        [t.data_ptr() for t in extra]
+    fn = build.function(f"{name}_launch", len(ptrs), 3)
     with torch.cuda.device(dev):
         err = fn(*ptrs, B, mb_w, mb_h, torch.cuda.current_stream().cuda_stream)
     build.check(f"{name}_launch", err)

@@ -13,6 +13,7 @@ import torch
 from ..intra import intra_reconstruct
 from ..intra_tables import R4, R8, S4, S8, W4, W8
 from . import LAUNCHES, build, cuda_device, require
+from .wavefront import wavefront_args
 
 # ABI fields the kernel reads, [B, n, ...] int32
 INTRA_ABI_KEYS = ("kind", "i4_modes", "i4_avail", "i8_modes", "i8_avail",
@@ -34,16 +35,20 @@ def _device_tables(device):
 def intra_phase(abi, res_y, res_cb, res_cr, init_y, init_cb, init_cr,
                 mb_w: int, mb_h: int):
     """Intra/PCM reconstruction of [B] frames along the knight-move
-    wavefront: one launch per phase (csrc/intra_phase.cu).  Arguments and
-    result as for run_intra."""
+    wavefront: one persistent launch with ready flags per MB and part,
+    luma or chroma (csrc/intra_phase.cu).  Arguments and result as for
+    run_intra."""
+    extra = wavefront_args(res_y.shape[0], mb_w, mb_h, res_y.device,
+                           parts=2) if cuda_device(res_y) else ()
     return run_intra("intra_phase", abi, res_y, res_cb, res_cr, init_y,
-                     init_cb, init_cr, mb_w, mb_h)
+                     init_cb, init_cr, mb_w, mb_h, extra)
 
 
 def run_intra(name: str, abi, res_y, res_cb, res_cr, init_y, init_cb,
-              init_cr, mb_w: int, mb_h: int):
+              init_cr, mb_w: int, mb_h: int, extra: tuple = ()):
     """Intra/PCM reconstruction of [B] frames with the kernel whose C
-    entry is `name`_launch, counted under LAUNCHES[name].
+    entry is `name`_launch, counted under LAUNCHES[name]; `extra` are
+    tensors that kernel takes after the common arguments.
 
     abi: dict with INTRA_ABI_KEYS, [B, n, ...] int32.  res_*: int32
     residual planes [B, H, W] / [B, H/2, W/2].  init_*: planes of the same
@@ -75,10 +80,11 @@ def run_intra(name: str, abi, res_y, res_cb, res_cr, init_y, init_cb,
     require(y, "init_y", torch.uint8, (B, H, W), dev)
     for arg, c in (("init_cb", cb), ("init_cr", cr)):
         require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
-    fn = build.function(f"{name}_launch", 20, 3)
     tabs = _device_tables(dev)
     ptrs = [abi[k].data_ptr() for k in INTRA_ABI_KEYS] + \
-        [t.data_ptr() for t in (res_y, res_cb, res_cr, y, cb, cr) + tabs]
+        [t.data_ptr() for t in (res_y, res_cb, res_cr, y, cb, cr) + tabs
+         + extra]
+    fn = build.function(f"{name}_launch", len(ptrs), 3)
     with torch.cuda.device(dev):
         err = fn(*ptrs, B, mb_w, mb_h, torch.cuda.current_stream().cuda_stream)
     build.check(f"{name}_launch", err)

@@ -10,8 +10,13 @@ Phases (each prints a line; any failure exits non-zero):
               1080p (mb 120 x 68), exact equality, with CUDA-event times;
               the raster-order kernels K5/K6 also against K1/K2; K1/K5
               also on a random intra ABI of every MB kind over random
-              init planes (the JSON keeps the synthetic_abi numbers)
-  4. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
+              init planes (the JSON keeps the synthetic_abi numbers);
+              each kernel's device launches in one wrapper call, counted
+              by torch.profiler (K1 and K2 must launch once per call)
+  4. wavefront  K1 and K2 50 times each on one 1080p input, every output
+              equal to the plain version; both at B = 4 (four 1080p
+              frames in one launch each), exact and timed
+  5. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
               tests/data/smoke_1080p_high.264 twice, with order="phase"
               (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
               frame's MD5 must equal the committed libavcodec golden, and
@@ -27,6 +32,9 @@ count each input the work needs read once and each output written once,
 from this run's inputs (see the *_need functions).  No single PyTorch
 call computes H.264 intra prediction, the deblocking filter or the
 quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
+Each kernel also gets `device_launches`, the kernels it puts on the card
+per wrapper call.  K1 and K2 also get `ms_b4` and `bound_ms_b4`: the
+same for four 1080p frames in one launch.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +55,8 @@ STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
 MB_W, MB_H = 120, 68          # 1920x1088 coded
 SEED = 0
 KERNEL_REPS = 20
+REPEATS = 50                   # exactness loop of the wavefront kernels
+B4 = 4                         # streams of the batched wavefront case
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
@@ -128,6 +139,23 @@ def mc_need(mv, rs, out) -> tuple[float, float]:
     return nbytes(mv, rs, out) + used * per_pair, 12 * used * per_pair
 
 
+def device_launches(calls: dict) -> dict:
+    """{key: kernels named `key`_kernel that one call of calls[key] puts
+    on the card}, from the device activities of one torch.profiler
+    session that makes each call once."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls.values():
+            call()
+            torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {key: sum(e.count for e in dev_events if f"{key}_kernel" in e.key)
+            for key in calls}
+
+
 def compare(name: str, got, want) -> int:
     """Exact equality of two tensors or tuples of tensors; returns the max
     absolute error (0) or exits."""
@@ -191,11 +219,14 @@ def main() -> None:
     ws4, ws8 = (t.to(dev) for t in make_ws_consts([[16] * 16] * 6,
                                                   [[16] * 64] * 2))
     results = {}
+    calls = {}                       # key -> one call of the kernel
 
-    def record(key, name, src, replaces, err, ms, plain_ms, need, note):
+    def record(key, name, src, replaces, err, ms, plain_ms, need, note,
+               call):
         bound_ms, bound_by = bound(*need)
         log("kernels", f"{name} {note}: equal, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        calls.setdefault(key, call)
         results.setdefault(key, dict(
             name=name, route="cuda", source=src, replaces=replaces,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -226,11 +257,11 @@ def main() -> None:
                 got = fn(a, *res, None, None, None, MB_W, MB_H)
                 torch.cuda.synchronize()
                 err = compare(key, got, want)
-                ms = cuda_ms(lambda: fn(a, *res, None, None, None,
-                                        MB_W, MB_H), KERNEL_REPS)
+                call = partial(fn, a, *res, None, None, None, MB_W, MB_H)
+                ms = cuda_ms(call, KERNEL_REPS)
                 record(key, f"{key} ({kid})",
                        f"arrow_h264_tpu_torch/csrc/{src}", replaces, err, ms,
-                       plain, intra_need(a, res), note)
+                       plain, intra_need(a, res), note, call)
                 outs.append(got)
             compare("intra_raster vs intra_phase", outs[1], outs[0])
             planes = outs[0]
@@ -252,12 +283,19 @@ def main() -> None:
             torch.cuda.synchronize()
             err = compare(key, got, want)
             work = tuple(p.clone() for p in planes)
-            ms = cuda_ms(lambda: fn(*work, tables, MB_W, MB_H), KERNEL_REPS)
+            call = partial(fn, *work, tables, MB_W, MB_H)
+            ms = cuda_ms(call, KERNEL_REPS)
             record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
                    replaces, err, ms, plain, deblock_need(tables, planes),
-                   note)
+                   note, call)
             outs.append(got)
         compare("deblock_raster vs deblock_phase", outs[1], outs[0])
+        if note == "synthetic_abi":      # K2 again and again, fresh planes
+            for _ in range(REPEATS):
+                compare("deblock_phase repeated", deblock_phase(
+                    *(p.clone() for p in planes), tables, MB_W, MB_H), want)
+            log("wavefront", f"deblock_phase (K2): {REPEATS} calls on "
+                f"{note}, each equal to the plain version")
 
     # K1/K5 on a random intra ABI of every kind (I4x4, I8x8, I16, PCM with
     # raw samples 0..255 as residual, and inter MBs that the kernels skip
@@ -282,12 +320,46 @@ def main() -> None:
         got = fn(ra, *res, *init, MB_W, MB_H)
         torch.cuda.synchronize()
         err = compare(key, got, want)
-        ms = cuda_ms(lambda: fn(ra, *res, *init, MB_W, MB_H), KERNEL_REPS)
+        call = partial(fn, ra, *res, *init, MB_W, MB_H)
+        ms = cuda_ms(call, KERNEL_REPS)
         record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
                replaces, err, ms, plain, intra_need(ra, res, init),
-               "random_intra_abi")
+               "random_intra_abi", call)
         outs.append(got)
     compare("intra_raster vs intra_phase", outs[1], outs[0])
+    # K1 again and again on the input with every MB kind and inter MBs
+    for _ in range(REPEATS):
+        compare("intra_phase repeated",
+                intra_phase(ra, *res, *init, MB_W, MB_H), want)
+    log("wavefront", f"intra_phase (K1): {REPEATS} calls on "
+        "random_intra_abi, each equal to the plain version")
+
+    # K1 + K2 at B = 4: four synthetic all-intra 1080p frames per launch
+    batch = [synthetic_batch(MB_W, MB_H, SEED + 10 + i, dev)[1]
+             for i in range(B4)]
+    a4 = {k: torch.cat([x[k] for x in batch]) for k in batch[0]}
+    res4 = residual_planes(a4, MB_W, MB_H, ws4, ws8)
+    want = tuple(p.to(torch.uint8)
+                 for p in intra_reconstruct(a4, *res4, MB_W, MB_H))
+    got = intra_phase(a4, *res4, None, None, None, MB_W, MB_H)
+    compare("intra_phase B=4", got, want)
+    ms = cuda_ms(lambda: intra_phase(a4, *res4, None, None, None,
+                                     MB_W, MB_H), KERNEL_REPS)
+    results["intra_phase"].update(ms_b4=ms, bound_ms_b4=bound(
+        *intra_need(a4, res4))[0])
+    tables4 = deblock_tables(a4, MB_W, MB_H)
+    want = tuple(p.to(torch.uint8) for p in deblock_filter_planes(
+        *got, tables4, MB_W, MB_H))
+    compare("deblock_phase B=4", deblock_phase(
+        *(p.clone() for p in got), tables4, MB_W, MB_H), want)
+    work = tuple(p.clone() for p in got)
+    ms = cuda_ms(lambda: deblock_phase(*work, tables4, MB_W, MB_H),
+                 KERNEL_REPS)
+    results["deblock_phase"].update(ms_b4=ms, bound_ms_b4=bound(
+        *deblock_need(tables4, got))[0])
+    log("wavefront", f"B={B4}: intra_phase {results['intra_phase']['ms_b4']:.4f}"
+        f" ms, deblock_phase {ms:.4f} ms per launch, both equal to the "
+        "plain versions")
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
     # wild MVs (+-512 quarter samples)
@@ -317,14 +389,23 @@ def main() -> None:
             torch.cuda.synchronize()
             err = compare(key, got, plain_fn(dpb, mv, rs, MB_W, MB_H))
             need = mc_need(mv, rs, got)
-            ms = cuda_ms(lambda: kern(dpb, mv, rs, MB_W, MB_H), KERNEL_REPS)
+            call = partial(kern, dpb, mv, rs, MB_W, MB_H)
+            ms = cuda_ms(call, KERNEL_REPS)
             plain = cuda_ms(lambda: plain_fn(dpb, mv, rs, MB_W, MB_H),
                             KERNEL_REPS)
             record(key, f"{key} ({src_name})",
                    "arrow_h264_tpu_torch/csrc/mc.cu",
                    "arrow_h264_tpu/ops/pallas/mc_kernel.py:"
                    + ("460" if key == "mc_luma" else "505"),
-                   err, ms, plain, need, note)
+                   err, ms, plain, need, note, call)
+
+    # device launches per wrapper call: K1 and K2 must launch once
+    for key, n_dev in device_launches(calls).items():
+        results[key]["device_launches"] = n_dev
+        log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
+            "per wrapper call")
+        if key in ("intra_phase", "deblock_phase") and n_dev != 1:
+            sys.exit(f"{key}: {n_dev} device launches per call, not 1")
 
     # ---- the main paths: decode the committed 1080p High stream with each
     # order of the intra and deblock kernels

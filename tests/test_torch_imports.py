@@ -53,12 +53,14 @@ def test_port_imports_no_jax():
               "ops.intra", "ops.deblock", "ops.inter", "ops.kernels.build",
               "ops.kernels.intra_phase", "ops.kernels.deblock_phase",
               "ops.kernels.mc", "ops.kernels.intra_raster",
-              "ops.kernels.deblock_raster", "host.centropy", "dpb",
+              "ops.kernels.deblock_raster", "ops.kernels.wavefront",
+              "host.centropy", "dpb",
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi"):
         assert f"arrow_h264_tpu_torch.{m}" in out["mods"]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py",
+                                    "tools/wavefront_probe.py"])
 def test_scripts_import_only_the_port(script):
     """The port's scripts import neither jax nor arrow_h264_tpu."""
     tree = ast.parse((REPO / script).read_text())

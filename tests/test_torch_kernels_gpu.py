@@ -108,16 +108,14 @@ def test_raster_kernels(dev, mb_w, mb_h, inter):
                                    mb_w, mb_h))
 
 
-@pytest.mark.parametrize("mb_w,mb_h", [(5, 4), (9, 2)])
-def test_kernels_random_batch(dev, mb_w, mb_h):
-    """Three streams of random intra ABIs (random modes and availability)
-    and random deblock tables (every bS, tc0, alpha, beta) in one launch
-    each, against the plain versions."""
-    B = 3
+def _random_inputs(mb_w, mb_h, B, seed, dev):
+    """B streams of random intra ABIs (random modes and availability) over
+    random init planes, and random deblock tables (every bS, tc0, alpha,
+    beta): (abi, residual planes, init planes, tables)."""
     H, W = mb_h * 16, mb_w * 16
     n = mb_w * mb_h
-    rng = np.random.default_rng(mb_w)
-    abis = [random_intra_abi(mb_w, mb_h, 7 * mb_w + i) for i in range(B)]
+    rng = np.random.default_rng(seed)
+    abis = [random_intra_abi(mb_w, mb_h, 7 * seed + i) for i in range(B)]
     a = {k: torch.from_numpy(np.stack([x[k] for x in abis])).to(dev)
          for k in abis[0]}
     shapes = ((B, H, W), (B, H // 2, W // 2), (B, H // 2, W // 2))
@@ -131,9 +129,6 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
     res = [torch.from_numpy(r).to(dev) for r in res]
     init = [torch.from_numpy(rng.integers(0, 256, s).astype(np.int32))
             .to(dev) for s in shapes]
-    got = intra_phase(a, *res, *init, mb_w, mb_h)
-    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
-    _equal(intra_raster(a, *res, *init, mb_w, mb_h), got)
 
     def t(lo, hi, *shape):
         return torch.from_numpy(rng.integers(lo, hi, (B, n) + shape)
@@ -150,10 +145,71 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
     tables["bs_h"].view(B, mb_h, mb_w, 4, 4)[:, 0, :, 0] = 0
     tables["bs_c"].view(B, mb_h, mb_w, 2, 2, 4)[:, :, 0, 0, 0] = 0
     tables["bs_c"].view(B, mb_h, mb_w, 2, 2, 4)[:, 0, :, 1, 0] = 0
+    return a, res, init, tables
+
+
+@pytest.mark.parametrize("mb_w,mb_h", [(5, 4), (9, 2)])
+def test_kernels_random_batch(dev, mb_w, mb_h):
+    """Three streams of random intra ABIs and random deblock tables in one
+    launch each, against the plain versions."""
+    a, res, init, tables = _random_inputs(mb_w, mb_h, 3, mb_w, dev)
+    got = intra_phase(a, *res, *init, mb_w, mb_h)
+    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
+    _equal(intra_raster(a, *res, *init, mb_w, mb_h), got)
     want = deblock_filter_planes(*got, tables, mb_w, mb_h)
     _equal(deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h), want)
     _equal(deblock_raster(*(p.clone() for p in got), tables, mb_w, mb_h),
            want)
+
+
+def _device_kernels(call, name):
+    """(call's result, how many times it put the kernel `name` on the card),
+    counted from torch.profiler's device activities."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and name in e.key)
+
+
+@pytest.mark.parametrize("mb_w,mb_h,B", [(1, 1, 1), (1, 6, 1), (6, 1, 1),
+                                         (7, 5, 1), (120, 68, 1),
+                                         (120, 68, 4)])
+def test_wavefront_kernels(dev, mb_w, mb_h, B):
+    """K1/K2 against the plain versions on edge grids (one MB wide or
+    high, 1 x 1) and at 1080p, where B = 4 streams hold far more MBs than
+    the card has resident blocks; each call puts its kernel on the card
+    once."""
+    a, res, init, tables = _random_inputs(mb_w, mb_h, B, mb_w + mb_h, dev)
+    got, n = _device_kernels(lambda: intra_phase(a, *res, *init, mb_w, mb_h),
+                             "intra_phase_kernel")
+    assert n == 1
+    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
+    want = deblock_filter_planes(*got, tables, mb_w, mb_h)
+    filtered, n = _device_kernels(
+        lambda: deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h),
+        "deblock_phase_kernel")
+    assert n == 1
+    _equal(filtered, want)
+
+
+def test_wavefront_kernels_repeat(dev):
+    """50 calls of K1 and of K2 on one 1080p input: a race between an MB
+    and the neighbours it waits on would make some output differ from the
+    first or from the plain version."""
+    a, res, init, tables = _random_inputs(120, 68, 1, 11, dev)
+    first = intra_phase(a, *res, *init, 120, 68)
+    _equal(first, intra_reconstruct(a, *res, 120, 68, *init))
+    for _ in range(49):
+        _equal(intra_phase(a, *res, *init, 120, 68), first)
+    want = deblock_filter_planes(*first, tables, 120, 68)
+    for _ in range(50):
+        _equal(deblock_phase(*(p.clone() for p in first), tables, 120, 68),
+               want)
 
 
 @pytest.mark.parametrize("mb_w,mb_h", SIZES)
