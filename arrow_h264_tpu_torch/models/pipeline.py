@@ -96,7 +96,9 @@ def dpb_alloc(mb_w: int, mb_h: int, n_slots: int, device):
 
 
 def _mc_pred(abi: dict, dpb_y, dpb_c, mb_w: int, mb_h: int):
-    """Inter prediction planes (pred_y, pred_cb, pred_cr) [B, ...] int32."""
+    """Inter prediction planes (pred_y, pred_cb, pred_cr) [B, ...] int32:
+    K3/K4 (mc_luma, mc_chroma) predict each list as uint8, and
+    mc_combine weights and averages the lists in int32."""
     a = resolve_weights(abi)
     return mc_combine(mc_luma(dpb_y, a["mv"], a["refslot"], mb_w, mb_h),
                       mc_chroma(dpb_c, a["mv"], a["refslot"], mb_w, mb_h),

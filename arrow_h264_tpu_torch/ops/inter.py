@@ -94,7 +94,7 @@ def mc_luma_plain(dpb_y, mv, refslot, mb_w: int, mb_h: int):
 
     dpb_y [B, S, 4, Hp, Wp] uint8; mv [B, n, 4, 4, 2, 2] int32 (y4, x4,
     list, (x, y)); refslot [B, n, 4, 4, 2] int32 (-1 unused).  Returns
-    [B, 2, H, W] int32; samples of unused lists are 0."""
+    [B, 2, H, W] uint8; samples of unused lists are 0."""
     B, S, _, Hp, Wp = dpb_y.shape
     H, W = mb_h * 16, mb_w * 16
     dev = dpb_y.device
@@ -115,14 +115,14 @@ def mc_luma_plain(dpb_y, mv, refslot, mb_w: int, mb_h: int):
     p1, p2 = fetch(0), fetch(3)
     same = (sel[..., 0:3] == sel[..., 3:6]).all(-1)
     out = torch.where(same, p1, (p1 + p2 + 1) >> 1)
-    return torch.where(slot >= 0, out, 0)
+    return torch.where(slot >= 0, out, 0).to(torch.uint8)
 
 
 def mc_chroma_plain(dpb_c, mv, refslot, mb_w: int, mb_h: int):
     """1/8-pel bilinear chroma prediction of both lists and planes.
 
     dpb_c [B, S, 2, Hcp, Wcp] uint8.  Returns [B, 2 (list), 2 (plane),
-    H/2, W/2] int32; samples of unused lists are 0."""
+    H/2, W/2] uint8; samples of unused lists are 0."""
     B, S, _, Hp, Wp = dpb_c.shape
     Hc, Wc = mb_h * 8, mb_w * 8
     dev = dpb_c.device
@@ -143,7 +143,7 @@ def mc_chroma_plain(dpb_c, mv, refslot, mb_w: int, mb_h: int):
         v = ((8 - xf) * (8 - yf) * g(0, 0) + xf * (8 - yf) * g(0, 1) +
              (8 - xf) * yf * g(1, 0) + xf * yf * g(1, 1) + 32) >> 6
         planes.append(torch.where(slot >= 0, v, 0))
-    return torch.stack(planes, 2)
+    return torch.stack(planes, 2).to(torch.uint8)
 
 
 def weight_uni_dev(pred, w, o, log_wd):
@@ -163,8 +163,9 @@ def weight_bi_dev(p0, p1, w0, w1, o0, o1, log_wd):
 def mc_combine(pred_y, pred_c, refslot, wp, logwd, mb_w: int, mb_h: int):
     """Weighted / bi-predictive combine of the two lists' predictions.
 
-    pred_y [B, 2, H, W], pred_c [B, 2, 2, H/2, W/2] int32; wp [B, n, 4, 4,
-    2 (list), 3 (plane), 2 (w, o)], logwd [B, n, 2 (luma, chroma)].
+    pred_y [B, 2, H, W], pred_c [B, 2, 2, H/2, W/2] uint8 (int32 works
+    the same: the weights promote them); wp [B, n, 4, 4, 2 (list),
+    3 (plane), 2 (w, o)], logwd [B, n, 2 (luma, chroma)].
     Returns (pred_y [B, H, W], pred_cb, pred_cr [B, H/2, W/2]) int32;
     intra-MB regions are garbage (masked by the caller)."""
     used = refslot >= 0

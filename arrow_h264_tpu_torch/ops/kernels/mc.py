@@ -1,10 +1,18 @@
 """Wrappers of the MC kernels (csrc/mc.cu): luma and chroma prediction of
-both reference lists from the dense uint8 DPB.
+both reference lists from the dense uint8 DPB, as uint8.
 
 Replace arrow_h264_tpu/ops/pallas/mc_kernel.py::mc_luma_pallas_batch and
 ::mc_chroma_pallas_batch.  The plain versions are ops/inter.py::
 mc_luma_plain and ::mc_chroma_plain; the weighted combine after them
 (ops/inter.py::mc_combine) is plain PyTorch on every device.
+
+The kernels are bound by device-memory bytes.  Luma runs one thread per
+4-sample row of a 4x4 cell: the cell's slot and MV are read once, the
+reference as aligned 32-bit words joined by a shift, and the four uint8
+samples are stored as one word.  Chroma runs one thread per 2x2 chroma
+cell for both planes.  The word reads need a 4-byte aligned DPB and the
+one 8-byte MV load an 8-byte aligned `mv`: the wrappers check both and
+raise, and never fall back to the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -18,47 +26,51 @@ from . import LAUNCHES, build, cuda_device, require
 def _check_motion(mv, refslot, B: int, n: int, dev) -> None:
     require(mv, "mv", torch.int32, (B, n, 4, 4, 2, 2), dev)
     require(refslot, "refslot", torch.int32, (B, n, 4, 4, 2), dev)
+    if mv.data_ptr() % 8:
+        raise ValueError("mv: data_ptr() is not 8-byte aligned")
+
+
+def _check_dpb(dpb, name: str, shape, dev) -> None:
+    require(dpb, name, torch.uint8, shape, dev)
+    if dpb.data_ptr() % 4:
+        raise ValueError(f"{name}: data_ptr() is not 4-byte aligned")
+
+
+def _launch(name: str, dpb, mv, refslot, out, mb_w: int, mb_h: int):
+    B, S = dpb.shape[:2]
+    fn = build.function(f"{name}_launch", 4, 4)
+    with torch.cuda.device(dpb.device):
+        err = fn(dpb.data_ptr(), mv.data_ptr(), refslot.data_ptr(),
+                 out.data_ptr(), B, S, mb_w, mb_h,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(f"{name}_launch", err)
+    LAUNCHES[name] += 1
+    return out
 
 
 def mc_luma(dpb_y, mv, refslot, mb_w: int, mb_h: int):
-    """dpb_y [B, S, 4, H + 2*PAD, W + 2*PAD] uint8 -> [B, 2, H, W] int32
+    """dpb_y [B, S, 4, H + 2*PAD, W + 2*PAD] uint8 -> [B, 2, H, W] uint8
     quarter-pel prediction of lists 0 and 1 (0 where a list is unused)."""
     dev = cuda_device(dpb_y)
     if dev is None:
         return mc_luma_plain(dpb_y, mv, refslot, mb_w, mb_h)
     B, S = dpb_y.shape[:2]
     H, W = mb_h * 16, mb_w * 16
-    require(dpb_y, "dpb_y", torch.uint8, (B, S, 4, H + 2 * PAD, W + 2 * PAD),
-            dev)
+    _check_dpb(dpb_y, "dpb_y", (B, S, 4, H + 2 * PAD, W + 2 * PAD), dev)
     _check_motion(mv, refslot, B, mb_w * mb_h, dev)
-    out = torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
-    fn = build.function("mc_luma_launch", 4, 4)
-    with torch.cuda.device(dev):
-        err = fn(dpb_y.data_ptr(), mv.data_ptr(), refslot.data_ptr(),
-                 out.data_ptr(), B, S, mb_w, mb_h,
-                 torch.cuda.current_stream().cuda_stream)
-    build.check("mc_luma_launch", err)
-    LAUNCHES["mc_luma"] += 1
-    return out
+    out = torch.empty((B, 2, H, W), dtype=torch.uint8, device=dev)
+    return _launch("mc_luma", dpb_y, mv, refslot, out, mb_w, mb_h)
 
 
 def mc_chroma(dpb_c, mv, refslot, mb_w: int, mb_h: int):
     """dpb_c [B, S, 2, H/2 + 2*PADC, W/2 + 2*PADC] uint8 -> [B, 2 (list),
-    2 (plane), H/2, W/2] int32 1/8-pel prediction (0 for unused lists)."""
+    2 (plane), H/2, W/2] uint8 1/8-pel prediction (0 for unused lists)."""
     dev = cuda_device(dpb_c)
     if dev is None:
         return mc_chroma_plain(dpb_c, mv, refslot, mb_w, mb_h)
     B, S = dpb_c.shape[:2]
     Hc, Wc = mb_h * 8, mb_w * 8
-    require(dpb_c, "dpb_c", torch.uint8,
-            (B, S, 2, Hc + 2 * PADC, Wc + 2 * PADC), dev)
+    _check_dpb(dpb_c, "dpb_c", (B, S, 2, Hc + 2 * PADC, Wc + 2 * PADC), dev)
     _check_motion(mv, refslot, B, mb_w * mb_h, dev)
-    out = torch.empty((B, 2, 2, Hc, Wc), dtype=torch.int32, device=dev)
-    fn = build.function("mc_chroma_launch", 4, 4)
-    with torch.cuda.device(dev):
-        err = fn(dpb_c.data_ptr(), mv.data_ptr(), refslot.data_ptr(),
-                 out.data_ptr(), B, S, mb_w, mb_h,
-                 torch.cuda.current_stream().cuda_stream)
-    build.check("mc_chroma_launch", err)
-    LAUNCHES["mc_chroma"] += 1
-    return out
+    out = torch.empty((B, 2, 2, Hc, Wc), dtype=torch.uint8, device=dev)
+    return _launch("mc_chroma", dpb_c, mv, refslot, out, mb_w, mb_h)

@@ -12,11 +12,20 @@ Phases (each prints a line; any failure exits non-zero):
               also on a random intra ABI of every MB kind over random
               init planes (the JSON keeps the synthetic_abi numbers);
               each kernel's device launches in one wrapper call, counted
-              by torch.profiler (K1 and K2 must launch once per call)
+              by torch.profiler (every kernel must launch once per call)
   4. wavefront  K1 and K2 50 times each on one 1080p input, every output
               equal to the plain version; both at B = 4 (four 1080p
               frames in one launch each), exact and timed
-  5. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
+  5. mc       K3 and K4 (uint8 predictions) at B = 1 on synthetic_abi_p
+              and with 5 % wild MVs, warm and cold (L2 flushed before
+              each launch); on the first P and the first B picture of
+              the smoke stream, with the DPB that picture's decode reads;
+              and at B = 8 (eight streams, each over 4 reference pictures
+              of its own: ~330 MB of DPB, far beyond the 50 MB L2), also
+              with every cell at one quarter-sample position and with
+              one MV and slot for every cell of a list (reads that share
+              sectors); all exact and timed
+  6. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
               tests/data/smoke_1080p_high.264 twice, with order="phase"
               (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
               frame's MD5 must equal the committed libavcodec golden, and
@@ -34,13 +43,25 @@ call computes H.264 intra prediction, the deblocking filter or the
 quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
 Each kernel also gets `device_launches`, the kernels it puts on the card
 per wrapper call.  K1 and K2 also get `ms_b4` and `bound_ms_b4`: the
-same for four 1080p frames in one launch.
+same for four 1080p frames in one launch.  K3 and K4 also get `ms_b8`
+and `bound_ms_b8` (eight 1080p streams in one launch) and `ms_cold` (L2
+flushed before each launch).  The other MC figures (launched back to
+back from the host without the device sleep, the smoke stream's
+pictures, the B = 8 variants) are log lines only.
+
+A kernel's `ms` is the median over ROUNDS rounds of the mean of
+KERNEL_REPS launches, timed with CUDA events.  Each round is enqueued
+behind a device sleep, so the launches run back to back on the card and
+the events time the kernels, not the host's cost of a wrapper call (tens
+of microseconds, more than a small kernel takes).  A plain version's
+`plain_ms` is its wall time, timed the same way with no sleep.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -55,8 +76,12 @@ STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
 MB_W, MB_H = 120, 68          # 1920x1088 coded
 SEED = 0
 KERNEL_REPS = 20
+ROUNDS = 5                     # rounds of KERNEL_REPS launches per figure
+SLEEP_CYCLES = 10_000_000      # device sleep ahead of a timed round (~5 ms)
+FLUSH_BYTES = 128 << 20        # written before each cold launch (L2 50 MB)
 REPEATS = 50                   # exactness loop of the wavefront kernels
 B4 = 4                         # streams of the batched wavefront case
+B8 = 8                         # streams of the batched MC case
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
@@ -65,19 +90,58 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up call, from CUDA
-    events (for host-bound plain versions this is their wall time)."""
+def cuda_ms(fn, reps: int, rounds: int = 1, queued: bool = False) -> float:
+    """Median over `rounds` of the mean ms per call of `reps` calls, from
+    CUDA events, after one warm-up call.  queued: each round is enqueued
+    behind a device sleep, so the events time the calls' kernels back to
+    back; a round the host did not finish enqueueing within the sleep is
+    made again with twice the sleep.  Without it this is the calls' wall
+    time (for host-bound plain versions, the host's)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    times, sleep = [], SLEEP_CYCLES
+    while len(times) < rounds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(sleep)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        late = queued and start.query()
+        end.synchronize()
+        if late:
+            sleep *= 2
+        else:
+            times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def kernel_ms(fn) -> float:
+    """A kernel's `ms` (module docstring)."""
+    return cuda_ms(fn, KERNEL_REPS, ROUNDS, queued=True)
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Median ms of `reps` calls, each timed by its own event pair after
+    writing FLUSH_BYTES, so that the 50 MB L2 holds none of the call's
+    inputs; a short device sleep after the write lets the host enqueue
+    the call before the card reaches it."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for i in range(reps):
+        flush.fill_(i & 0xff)
+        torch.cuda._sleep(SLEEP_CYCLES // 10)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -139,6 +203,30 @@ def mc_need(mv, rs, out) -> tuple[float, float]:
     return nbytes(mv, rs, out) + used * per_pair, 12 * used * per_pair
 
 
+def stream_mc_inputs(data: bytes, dev) -> dict:
+    """{"P": ..., "B": ...}: the (dpb_y, dpb_c, mv, refslot) [1, ...]
+    that K3/K4 get for the first P and the first B picture of a decode
+    of `data`, each DPB as it stood when that picture was decoded.  The
+    loop is Decoder.decode_annexb's, with the inputs taken on the way."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.models.pipeline import upload_abi
+    dec = Decoder(device=dev)
+    found = {}
+    for pic, poc in dec.parse_pictures(data):
+        abi = dec.pack_abi(pic, poc)
+        pipe = dec._pipeline(pic.sps, pic.pps)
+        hdr = pic.headers[0]
+        kind = "P" if hdr.is_p else "B" if hdr.is_b else None
+        if kind is not None and kind not in found:
+            a = upload_abi(abi, dev)
+            found[kind] = (pipe.dpb_y[None].clone(), pipe.dpb_c[None].clone(),
+                           a["mv"][None], a["refslot"][None])
+        planes = pipe.decode_frame(abi)
+        for _ in dec.commit(pic, poc, *planes, pipe.n_slots, pipe.store_ref):
+            pass
+    return found
+
+
 def device_launches(calls: dict) -> dict:
     """{key: kernels named `key`_kernel that one call of calls[key] puts
     on the card}, from the device activities of one torch.profiler
@@ -157,14 +245,15 @@ def device_launches(calls: dict) -> dict:
 
 
 def compare(name: str, got, want) -> int:
-    """Exact equality of two tensors or tuples of tensors; returns the max
-    absolute error (0) or exits."""
+    """Exact equality, dtype included, of two tensors or tuples of tensors;
+    returns the max absolute error (0) or exits."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0
     for g, w in zip(got, want, strict=True):
-        if g.shape != w.shape:
-            sys.exit(f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.shape != w.shape or g.dtype != w.dtype:
+            sys.exit(f"{name}: {g.dtype} {tuple(g.shape)} != {w.dtype} "
+                     f"{tuple(w.shape)}")
         err = max(err, int((g.long() - w.long()).abs().max().item()))
     if err:
         sys.exit(f"{name}: kernel differs from its plain version "
@@ -258,7 +347,7 @@ def main() -> None:
                 torch.cuda.synchronize()
                 err = compare(key, got, want)
                 call = partial(fn, a, *res, None, None, None, MB_W, MB_H)
-                ms = cuda_ms(call, KERNEL_REPS)
+                ms = kernel_ms(call)
                 record(key, f"{key} ({kid})",
                        f"arrow_h264_tpu_torch/csrc/{src}", replaces, err, ms,
                        plain, intra_need(a, res), note, call)
@@ -284,7 +373,7 @@ def main() -> None:
             err = compare(key, got, want)
             work = tuple(p.clone() for p in planes)
             call = partial(fn, *work, tables, MB_W, MB_H)
-            ms = cuda_ms(call, KERNEL_REPS)
+            ms = kernel_ms(call)
             record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
                    replaces, err, ms, plain, deblock_need(tables, planes),
                    note, call)
@@ -321,7 +410,7 @@ def main() -> None:
         torch.cuda.synchronize()
         err = compare(key, got, want)
         call = partial(fn, ra, *res, *init, MB_W, MB_H)
-        ms = cuda_ms(call, KERNEL_REPS)
+        ms = kernel_ms(call)
         record(key, f"{key} ({kid})", f"arrow_h264_tpu_torch/csrc/{src}",
                replaces, err, ms, plain, intra_need(ra, res, init),
                "random_intra_abi", call)
@@ -343,8 +432,8 @@ def main() -> None:
                  for p in intra_reconstruct(a4, *res4, MB_W, MB_H))
     got = intra_phase(a4, *res4, None, None, None, MB_W, MB_H)
     compare("intra_phase B=4", got, want)
-    ms = cuda_ms(lambda: intra_phase(a4, *res4, None, None, None,
-                                     MB_W, MB_H), KERNEL_REPS)
+    ms = kernel_ms(lambda: intra_phase(a4, *res4, None, None, None,
+                                       MB_W, MB_H))
     results["intra_phase"].update(ms_b4=ms, bound_ms_b4=bound(
         *intra_need(a4, res4))[0])
     tables4 = deblock_tables(a4, MB_W, MB_H)
@@ -353,8 +442,7 @@ def main() -> None:
     compare("deblock_phase B=4", deblock_phase(
         *(p.clone() for p in got), tables4, MB_W, MB_H), want)
     work = tuple(p.clone() for p in got)
-    ms = cuda_ms(lambda: deblock_phase(*work, tables4, MB_W, MB_H),
-                 KERNEL_REPS)
+    ms = kernel_ms(lambda: deblock_phase(*work, tables4, MB_W, MB_H))
     results["deblock_phase"].update(ms_b4=ms, bound_ms_b4=bound(
         *deblock_need(tables4, got))[0])
     log("wavefront", f"B={B4}: intra_phase {results['intra_phase']['ms_b4']:.4f}"
@@ -362,49 +450,104 @@ def main() -> None:
         "plain versions")
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
-    # wild MVs (+-512 quarter samples)
+    # wild MVs (+-512 quarter samples); on synthetic_abi_p also cold (L2
+    # flushed before each launch) and unqueued
+    mc_kernels = (("mc_luma", mc_luma, mc_luma_plain, "K3", "460"),
+                  ("mc_chroma", mc_chroma, mc_chroma_plain, "K4", "505"))
     n_slots = 4
-    dpb_y, dpb_c = dpb_alloc(MB_W, MB_H, n_slots, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for s in range(n_slots):
-        store_ref_fn(dpb_y, dpb_c, s, *(
-            torch.randint(0, 256, shp, generator=g, device=dev,
-                          dtype=torch.uint8)
-            for shp in ((H, W), (H // 2, W // 2), (H // 2, W // 2))))
-    dpb_y, dpb_c = dpb_y[None], dpb_c[None]
+
+    def random_dpbs(B):
+        """[B, n_slots, ...] luma and chroma DPBs, every slot of every
+        stream stored from its own random picture."""
+        ys, cs = zip(*(dpb_alloc(MB_W, MB_H, n_slots, dev) for _ in range(B)))
+        dpbs = torch.stack(ys), torch.stack(cs)
+        for b in range(B):
+            for s in range(n_slots):
+                store_ref_fn(dpbs[0][b], dpbs[1][b], s, *(
+                    torch.randint(0, 256, shp, generator=g, device=dev,
+                                  dtype=torch.uint8)
+                    for shp in ((H, W), (H // 2, W // 2), (H // 2, W // 2))))
+        return dpbs
+
+    dpb_y, dpb_c = random_dpbs(1)
     abi_h, _ = synthetic_batch(MB_W, MB_H, SEED + 2, dev, inter=True,
                                n_slots=n_slots, bi_frac=0.3)
     rng = np.random.default_rng(SEED + 3)
     wild = rng.random((MB_W * MB_H, 4, 4)) < 0.05
     wmv = rng.integers(-512, 513, abi_h["mv"].shape).astype(np.int32)
+    rs = torch.from_numpy(abi_h["refslot"]).to(dev)[None]
     for note, mv_h in (("synthetic_abi_p", abi_h["mv"]),
                        ("wild mv", np.where(wild[..., None, None], wmv,
                                             abi_h["mv"]))):
         mv = torch.from_numpy(np.ascontiguousarray(mv_h)).to(dev)[None]
-        rs = torch.from_numpy(abi_h["refslot"]).to(dev)[None]
-        for key, kern, plain_fn, dpb, src_name in (
-                ("mc_luma", mc_luma, mc_luma_plain, dpb_y, "K3"),
-                ("mc_chroma", mc_chroma, mc_chroma_plain, dpb_c, "K4")):
+        for key, kern, plain_fn, kid, line in mc_kernels:
+            dpb = dpb_y if key == "mc_luma" else dpb_c
             got = kern(dpb, mv, rs, MB_W, MB_H)
             torch.cuda.synchronize()
             err = compare(key, got, plain_fn(dpb, mv, rs, MB_W, MB_H))
-            need = mc_need(mv, rs, got)
             call = partial(kern, dpb, mv, rs, MB_W, MB_H)
-            ms = cuda_ms(call, KERNEL_REPS)
+            ms = kernel_ms(call)
             plain = cuda_ms(lambda: plain_fn(dpb, mv, rs, MB_W, MB_H),
                             KERNEL_REPS)
-            record(key, f"{key} ({src_name})",
-                   "arrow_h264_tpu_torch/csrc/mc.cu",
-                   "arrow_h264_tpu/ops/pallas/mc_kernel.py:"
-                   + ("460" if key == "mc_luma" else "505"),
-                   err, ms, plain, need, note, call)
+            record(key, f"{key} ({kid})", "arrow_h264_tpu_torch/csrc/mc.cu",
+                   f"arrow_h264_tpu/ops/pallas/mc_kernel.py:{line}", err, ms,
+                   plain, mc_need(mv, rs, got), note, call)
+            if note == "synthetic_abi_p":
+                r = results[key]
+                r.update(ms_cold=cold_ms(call, KERNEL_REPS))
+                log("mc", f"{r['name']}: cold {r['ms_cold']:.4f} ms, "
+                    f"unqueued {cuda_ms(call, KERNEL_REPS, ROUNDS):.4f} ms, "
+                    f"{got.dtype}")
+    del dpb_y, dpb_c
 
-    # device launches per wrapper call: K1 and K2 must launch once
+    def mc_case(note, dpbs, mv, rs):
+        """K3 and K4 on one input: equal to the plain versions; logs the
+        kernel ms and the bound; returns {key: (ms, bound_ms)}."""
+        out = {}
+        for key, kern, plain_fn, kid, _ in mc_kernels:
+            dpb = dpbs[key != "mc_luma"]
+            got = kern(dpb, mv, rs, MB_W, MB_H)
+            torch.cuda.synchronize()
+            compare(f"{key} {note}", got, plain_fn(dpb, mv, rs, MB_W, MB_H))
+            out[key] = (kernel_ms(partial(kern, dpb, mv, rs, MB_W, MB_H)),
+                        bound(*mc_need(mv, rs, got))[0])
+            log("mc", f"{key} ({kid}) {note} ({nbytes(dpb) / 1e6:.1f} MB "
+                f"of DPB): equal, kernel {out[key][0]:.4f} ms, bound "
+                f"{out[key][1]:.4f} ms")
+        return out
+
+    # K3 + K4 on the smoke stream's own pictures
+    for kind, (*dpbs, mv, rs) in stream_mc_inputs(STREAM.read_bytes(),
+                                                   dev).items():
+        mc_case(f"smoke stream {kind} picture", dpbs, mv, rs)
+
+    # K3 + K4 at B = 8: eight synthetic_abi_p streams in one launch, each
+    # over 4 reference pictures of its own; then every cell at one
+    # quarter-sample (and 1/8-sample) position, each with its own
+    # integer MV and slot; then one MV and slot for all cells of a list,
+    # so that neighbouring cells read neighbouring samples
+    dpbs = random_dpbs(B8)
+    abis = [synthetic_batch(MB_W, MB_H, SEED + 20 + b, dev, inter=True,
+                            n_slots=n_slots, bi_frac=0.3)[1]
+            for b in range(B8)]
+    mv, rs = (torch.cat([a[k] for a in abis]) for k in ("mv", "refslot"))
+    del abis
+    for key, (ms, bound_ms) in mc_case(f"B={B8}", dpbs, mv, rs).items():
+        results[key].update(ms_b8=ms, bound_ms_b8=bound_ms)
+    frac = torch.tensor([5, 3], dtype=torch.int32, device=dev)
+    mc_case(f"B={B8} one position", dpbs, (mv & ~7) | frac, rs)
+    one_slot = torch.arange(2, dtype=torch.int32, device=dev)
+    mc_case(f"B={B8} one MV and slot a list", dpbs,
+            torch.zeros_like(mv) + frac, torch.where(rs >= 0, one_slot, rs))
+    del dpbs
+
+    # device launches per wrapper call: every kernel must launch once
     for key, n_dev in device_launches(calls).items():
         results[key]["device_launches"] = n_dev
         log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
             "per wrapper call")
-        if key in ("intra_phase", "deblock_phase") and n_dev != 1:
+        if n_dev != 1:
             sys.exit(f"{key}: {n_dev} device launches per call, not 1")
 
     # ---- the main paths: decode the committed 1080p High stream with each

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from arrow_h264_tpu_torch.models.pipeline import dpb_alloc, store_ref_fn
+from arrow_h264_tpu_torch.models.pipeline import dpb_alloc
 from arrow_h264_tpu_torch.ops import kernels
 from arrow_h264_tpu_torch.ops.deblock import (
     deblock_filter_planes, deblock_tables,
 )
-from arrow_h264_tpu_torch.ops.inter import mc_chroma_plain, mc_luma_plain
+from arrow_h264_tpu_torch.ops.inter import (
+    PAD, PADC, mc_chroma_plain, mc_luma_plain,
+)
 from arrow_h264_tpu_torch.ops.intra import intra_reconstruct
 from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
 from arrow_h264_tpu_torch.ops.kernels.deblock_raster import deblock_raster
@@ -38,6 +40,8 @@ pytestmark = pytest.mark.cuda
 SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
 SIZES = [(7, 5), (22, 18)]            # ragged grid edges; CIF
 RASTER_SIZES = [(7, 5), (120, 68)]     # ragged grid edges; 1080p
+MC_SIZES = [(1, 1), (7, 5), (22, 18), (120, 68)]
+MC_SLOTS = 3
 
 
 @pytest.fixture
@@ -212,30 +216,103 @@ def test_wavefront_kernels_repeat(dev):
                want)
 
 
-@pytest.mark.parametrize("mb_w,mb_h", SIZES)
-@pytest.mark.parametrize("wild", [False, True])
-def test_mc_kernels(dev, mb_w, mb_h, wild):
+def _mc_dpbs(mb_w, mb_h, B, seed, dev):
+    """B DPBs of MC_SLOTS slots with random bytes in every sample, padding
+    included, so a column or row clamped at the wrong place reads another
+    value than the plain version's."""
     H, W = mb_h * 16, mb_w * 16
-    n_slots = 3
-    dy, dc = dpb_alloc(mb_w, mb_h, n_slots, dev)
-    g = torch.Generator(device=dev).manual_seed(5)
-    for s in range(n_slots):
-        store_ref_fn(dy, dc, s, *(
-            torch.randint(0, 256, shp, generator=g, device=dev,
-                          dtype=torch.uint8)
-            for shp in ((H, W), (H // 2, W // 2), (H // 2, W // 2))))
-    abi, a = synthetic_batch(mb_w, mb_h, 5, dev, inter=True,
-                             n_slots=n_slots, bi_frac=0.5)
-    mv = a["mv"]
-    if wild:
-        rng = np.random.default_rng(5)
-        mv = torch.from_numpy(rng.integers(-512, 513, tuple(mv.shape))
-                              .astype(np.int32)).to(dev)
-    rs = a["refslot"]
-    assert torch.equal(mc_luma(dy[None], mv, rs, mb_w, mb_h),
-                       mc_luma_plain(dy[None], mv, rs, mb_w, mb_h))
-    assert torch.equal(mc_chroma(dc[None], mv, rs, mb_w, mb_h),
-                       mc_chroma_plain(dc[None], mv, rs, mb_w, mb_h))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randint(0, 256, shape, generator=g, device=dev,
+                               dtype=torch.uint8)
+                 for shape in ((B, MC_SLOTS, 4, H + 2 * PAD, W + 2 * PAD),
+                               (B, MC_SLOTS, 2, H // 2 + 2 * PADC,
+                                W // 2 + 2 * PADC)))
+
+
+def _mc_motion(mb_w, mb_h, B, mvs, seed, dev):
+    """(mv, refslot) of B streams.  synthetic: synthetic_batch's P/B MVs
+    and slots; wild: MVs anywhere in +-2048 quarter samples; edge:
+    integer MV parts at the columns and rows where the reads reach each
+    edge of the 32-sample padding and just past it, and +-512.  wild and
+    edge draw each list's slot from -1 (unused) .. MC_SLOTS + 1 (a slot
+    >= S clamps to S - 1)."""
+    n = mb_w * mb_h
+    rng = np.random.default_rng(seed)
+    shape = (B, n, 4, 4, 2, 2)
+    if mvs == "synthetic":
+        abis = [synthetic_batch(mb_w, mb_h, seed + i, dev, inter=True,
+                                n_slots=MC_SLOTS, bi_frac=0.5)[1]
+                for i in range(B)]
+        return (torch.cat([a["mv"] for a in abis]),
+                torch.cat([a["refslot"] for a in abis]))
+    if mvs == "wild":
+        mv = rng.integers(-2048, 2049, shape)
+    else:
+        near = np.array([PAD + k for k in (-2, -1, 0, 1, 2)])
+        ints = np.concatenate([near, -near, [-512, 512, 0, 3, -5]])
+        mv = rng.choice(ints, shape) * 4 + rng.integers(0, 8, shape)
+    rs = rng.integers(-1, MC_SLOTS + 2, shape[:-1])
+    return (torch.from_numpy(mv.astype(np.int32)).to(dev),
+            torch.from_numpy(rs.astype(np.int32)).to(dev))
+
+
+def _mc_equal(dy, dc, mv, rs, mb_w, mb_h):
+    """K3 and K4 equal to their plain versions, uint8.  Each wrapper call
+    adds one to its LAUNCHES count; this does not see how many kernels the
+    call put on the card (chip_smoke.py counts those with torch.profiler)."""
+    for kern, plain, dpb in ((mc_luma, mc_luma_plain, dy),
+                             (mc_chroma, mc_chroma_plain, dc)):
+        n0 = kernels.LAUNCHES[kern.__name__]
+        got = kern(dpb, mv, rs, mb_w, mb_h)
+        assert kernels.LAUNCHES[kern.__name__] == n0 + 1
+        want = plain(dpb, mv, rs, mb_w, mb_h)
+        assert got.dtype == want.dtype == torch.uint8
+        assert torch.equal(got, want), kern.__name__
+
+
+@pytest.mark.parametrize("mb_w,mb_h", MC_SIZES)
+@pytest.mark.parametrize("mvs", ["synthetic", "wild", "edge"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_mc_kernels(dev, mb_w, mb_h, mvs, B):
+    seed = 5 + mb_w + 3 * B
+    dy, dc = _mc_dpbs(mb_w, mb_h, B, seed, dev)
+    mv, rs = _mc_motion(mb_w, mb_h, B, mvs, seed, dev)
+    _mc_equal(dy, dc, mv, rs, mb_w, mb_h)
+
+
+@pytest.mark.parametrize("pos", range(64))
+def test_mc_kernels_positions(dev, pos):
+    """Every chroma 1/8-sample position (yFrac, xFrac) = divmod(pos, 8),
+    and with it every luma quarter-sample position, as one MV of each
+    list over a 7x5 grid."""
+    fy, fx = divmod(pos, 8)
+    dy, dc = _mc_dpbs(7, 5, 1, pos, dev)
+    mv = torch.empty((1, 35, 4, 4, 2, 2), dtype=torch.int32, device=dev)
+    mv[..., 0, :] = torch.tensor([16 + fx, -24 + fy])
+    mv[..., 1, :] = torch.tensor([-40 + fx, 8 + fy])
+    rs = torch.zeros((1, 35, 4, 4, 2), dtype=torch.int32, device=dev)
+    rs[..., 1] = 2
+    _mc_equal(dy, dc, mv, rs, 7, 5)
+
+
+def test_mc_wrappers_refuse_unaligned(dev):
+    """The word reads need a 4-byte aligned DPB, the MV load an 8-byte
+    aligned mv: a view that is not raises, with no launch."""
+    dy, dc = _mc_dpbs(7, 5, 1, 1, dev)
+    mv, rs = _mc_motion(7, 5, 1, "synthetic", 1, dev)
+    before = dict(kernels.LAUNCHES)
+    for kern, dpb in ((mc_luma, dy), (mc_chroma, dc)):
+        flat = torch.empty(dpb.numel() + 1, dtype=torch.uint8, device=dev)
+        view = flat[1:].view(dpb.shape)
+        assert view.is_contiguous() and view.data_ptr() % 4
+        with pytest.raises(ValueError, match="aligned"):
+            kern(view, mv, rs, 7, 5)
+        words = torch.empty(mv.numel() + 1, dtype=torch.int32, device=dev)
+        mv_view = words[1:].view(mv.shape)
+        assert mv_view.data_ptr() % 8
+        with pytest.raises(ValueError, match="aligned"):
+            kern(dpb, mv_view, rs, 7, 5)
+    assert kernels.LAUNCHES == before
 
 
 def test_wrappers_refuse_bad_tensors(dev):
