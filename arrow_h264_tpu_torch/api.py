@@ -9,8 +9,8 @@ package's own copy of the JAX package's host code; the control loop is
 carried over from `arrow_h264_tpu.api` with the behaviour unchanged.
 Reconstruction runs in `models.pipeline.DevicePipeline` on `device`;
 `order` chooses its intra and deblock kernels ("phase", the default: the
-knight-move wavefront; "raster": one block per stream and plane walks
-the MBs in raster order).
+knight-move wavefront; "raster": raster order within each MB row, one
+worker per row, two MBs behind the row above).
 Progressive Baseline/Main/High streams; interlaced (field) streams raise
 NotImplementedError.
 """

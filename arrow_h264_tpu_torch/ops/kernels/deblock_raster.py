@@ -7,11 +7,15 @@ knight-move wavefront kernel (deblock_phase.py), whose contract it shares.
 
 from __future__ import annotations
 
+from . import cuda_device
 from .deblock_phase import run_deblock
+from .wavefront import row_args
 
 
 def deblock_raster(y, cb, cr, tables, mb_w: int, mb_h: int):
-    """Deblock [B] frames in raster order, the spec's own: one launch, one
-    block per (stream, plane).  Arguments and result as for
+    """Deblock [B] frames in raster order within each MB row, the spec's
+    own: one persistent launch, one worker per (MB row, stream), each two
+    MBs behind the row above.  Arguments and result as for
     deblock_phase.run_deblock."""
-    return run_deblock("deblock_raster", y, cb, cr, tables, mb_w, mb_h)
+    extra = row_args(y.shape[0], mb_h, y.device) if cuda_device(y) else ()
+    return run_deblock("deblock_raster", y, cb, cr, tables, mb_w, mb_h, extra)

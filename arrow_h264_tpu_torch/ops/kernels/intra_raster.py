@@ -7,13 +7,18 @@ knight-move wavefront kernel (intra_phase.py), whose contract it shares.
 
 from __future__ import annotations
 
+from . import cuda_device
 from .intra_phase import run_intra
+from .wavefront import row_args
 
 
 def intra_raster(abi, res_y, res_cb, res_cr, init_y, init_cb, init_cr,
                  mb_w: int, mb_h: int):
-    """Intra/PCM reconstruction of [B] frames in raster order: one launch,
-    one block per (stream, plane).  Arguments and result as for
-    intra_phase.run_intra."""
+    """Intra/PCM reconstruction of [B] frames in raster order within each
+    MB row: one persistent launch, one worker per (MB row, stream, part),
+    luma or chroma, each two MBs behind the row above.  Arguments and
+    result as for intra_phase.run_intra."""
+    extra = row_args(res_y.shape[0], mb_h, res_y.device, parts=2) \
+        if cuda_device(res_y) else ()
     return run_intra("intra_raster", abi, res_y, res_cb, res_cr, init_y,
-                     init_cb, init_cr, mb_w, mb_h)
+                     init_cb, init_cr, mb_w, mb_h, extra)

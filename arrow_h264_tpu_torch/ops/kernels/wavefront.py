@@ -1,11 +1,14 @@
-"""The knight-move wavefront order of the persistent intra and deblock
-kernels (csrc/intra_phase.cu, csrc/deblock_phase.cu).
+"""The work orders of the persistent intra and deblock kernels: the
+knight-move wavefront (csrc/intra_phase.cu, csrc/deblock_phase.cu) and
+the row pipeline (csrc/intra_raster.cu, csrc/deblock_raster.cu).
 
 MB (mx, my) of a frame depends on MBs of smaller knight phase 2*my + mx
 only: its left (phase - 1), top-right (phase - 1), top (phase - 2) and
 top-left (phase - 3) neighbours.  `wavefront_order` lists the MBs of one
 frame sorted by phase, then by row, so a kernel that hands out its work
 in that order (tickets) never waits on an MB that no running block holds.
+The row-pipelined kernels hand out whole MB rows, in row order, and need
+no order table (`row_args`).
 """
 
 from __future__ import annotations
@@ -37,3 +40,12 @@ def wavefront_args(B: int, mb_w: int, mb_h: int, device,
     scratch = torch.empty(parts * B * mb_w * mb_h + 1, dtype=torch.int32,
                           device=device)
     return _orders[key], scratch
+
+
+def row_args(B: int, mb_h: int, device, parts: int = 1) -> tuple:
+    """(scratch,) for one launch of a row-pipelined kernel: an
+    uninitialised int32 scratch of parts * B * mb_h row progress counters
+    (MBs finished, one per part, stream and MB row) plus the ticket
+    counter, which the kernel's C entry zeroes on the launch stream."""
+    return (torch.empty(parts * B * mb_h + 1, dtype=torch.int32,
+                        device=device),)

@@ -13,9 +13,10 @@ Phases (each prints a line; any failure exits non-zero):
               init planes (the JSON keeps the synthetic_abi numbers);
               each kernel's device launches in one wrapper call, counted
               by torch.profiler (every kernel must launch once per call)
-  4. wavefront  K1 and K2 50 times each on one 1080p input, every output
-              equal to the plain version; both at B = 4 (four 1080p
-              frames in one launch each), exact and timed
+  4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
+              1080p input, every output equal to the plain version; all
+              four at B = 4 (four 1080p frames in one launch each), exact
+              and timed
   5. mc       K3 and K4 (uint8 predictions) at B = 1 on synthetic_abi_p
               and with 5 % wild MVs, warm and cold (L2 flushed before
               each launch); on the first P and the first B picture of
@@ -42,8 +43,8 @@ from this run's inputs (see the *_need functions).  No single PyTorch
 call computes H.264 intra prediction, the deblocking filter or the
 quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
 Each kernel also gets `device_launches`, the kernels it puts on the card
-per wrapper call.  K1 and K2 also get `ms_b4` and `bound_ms_b4`: the
-same for four 1080p frames in one launch.  K3 and K4 also get `ms_b8`
+per wrapper call.  K1, K2, K5 and K6 also get `ms_b4` and `bound_ms_b4`:
+the same for four 1080p frames in one launch.  K3 and K4 also get `ms_b8`
 and `bound_ms_b8` (eight 1080p streams in one launch) and `ms_cold` (L2
 flushed before each launch).  The other MC figures (launched back to
 back from the host without the device sleep, the smoke stream's
@@ -379,12 +380,13 @@ def main() -> None:
                    note, call)
             outs.append(got)
         compare("deblock_raster vs deblock_phase", outs[1], outs[0])
-        if note == "synthetic_abi":      # K2 again and again, fresh planes
-            for _ in range(REPEATS):
-                compare("deblock_phase repeated", deblock_phase(
-                    *(p.clone() for p in planes), tables, MB_W, MB_H), want)
-            log("wavefront", f"deblock_phase (K2): {REPEATS} calls on "
-                f"{note}, each equal to the plain version")
+        if note == "synthetic_abi":      # K2, K6 again and again
+            for key, fn, kid, *_ in deblock_kernels:
+                for _ in range(REPEATS):
+                    compare(f"{key} repeated", fn(*(p.clone() for p in planes),
+                                                  tables, MB_W, MB_H), want)
+                log("wavefront", f"{key} ({kid}): {REPEATS} calls on {note}, "
+                    "each equal to the plain version")
 
     # K1/K5 on a random intra ABI of every kind (I4x4, I8x8, I16, PCM with
     # raw samples 0..255 as residual, and inter MBs that the kernels skip
@@ -416,38 +418,42 @@ def main() -> None:
                "random_intra_abi", call)
         outs.append(got)
     compare("intra_raster vs intra_phase", outs[1], outs[0])
-    # K1 again and again on the input with every MB kind and inter MBs
-    for _ in range(REPEATS):
-        compare("intra_phase repeated",
-                intra_phase(ra, *res, *init, MB_W, MB_H), want)
-    log("wavefront", f"intra_phase (K1): {REPEATS} calls on "
-        "random_intra_abi, each equal to the plain version")
+    # K1, K5 again and again on the input with every MB kind and inter MBs
+    for key, fn, kid, *_ in intra_kernels:
+        for _ in range(REPEATS):
+            compare(f"{key} repeated", fn(ra, *res, *init, MB_W, MB_H), want)
+        log("wavefront", f"{key} ({kid}): {REPEATS} calls on "
+            "random_intra_abi, each equal to the plain version")
 
-    # K1 + K2 at B = 4: four synthetic all-intra 1080p frames per launch
+    # K1, K5 + K2, K6 at B = 4: four synthetic all-intra 1080p frames per
+    # launch
     batch = [synthetic_batch(MB_W, MB_H, SEED + 10 + i, dev)[1]
              for i in range(B4)]
     a4 = {k: torch.cat([x[k] for x in batch]) for k in batch[0]}
     res4 = residual_planes(a4, MB_W, MB_H, ws4, ws8)
     want = tuple(p.to(torch.uint8)
                  for p in intra_reconstruct(a4, *res4, MB_W, MB_H))
-    got = intra_phase(a4, *res4, None, None, None, MB_W, MB_H)
-    compare("intra_phase B=4", got, want)
-    ms = kernel_ms(lambda: intra_phase(a4, *res4, None, None, None,
-                                       MB_W, MB_H))
-    results["intra_phase"].update(ms_b4=ms, bound_ms_b4=bound(
-        *intra_need(a4, res4))[0])
+    for key, fn, *_ in intra_kernels:
+        got = fn(a4, *res4, None, None, None, MB_W, MB_H)
+        compare(f"{key} B={B4}", got, want)
+        results[key].update(
+            ms_b4=kernel_ms(partial(fn, a4, *res4, None, None, None,
+                                    MB_W, MB_H)),
+            bound_ms_b4=bound(*intra_need(a4, res4))[0])
     tables4 = deblock_tables(a4, MB_W, MB_H)
     want = tuple(p.to(torch.uint8) for p in deblock_filter_planes(
         *got, tables4, MB_W, MB_H))
-    compare("deblock_phase B=4", deblock_phase(
-        *(p.clone() for p in got), tables4, MB_W, MB_H), want)
-    work = tuple(p.clone() for p in got)
-    ms = kernel_ms(lambda: deblock_phase(*work, tables4, MB_W, MB_H))
-    results["deblock_phase"].update(ms_b4=ms, bound_ms_b4=bound(
-        *deblock_need(tables4, got))[0])
-    log("wavefront", f"B={B4}: intra_phase {results['intra_phase']['ms_b4']:.4f}"
-        f" ms, deblock_phase {ms:.4f} ms per launch, both equal to the "
-        "plain versions")
+    for key, fn, *_ in deblock_kernels:
+        compare(f"{key} B={B4}", fn(*(p.clone() for p in got), tables4,
+                                     MB_W, MB_H), want)
+        work = tuple(p.clone() for p in got)
+        results[key].update(
+            ms_b4=kernel_ms(partial(fn, *work, tables4, MB_W, MB_H)),
+            bound_ms_b4=bound(*deblock_need(tables4, got))[0])
+    log("wavefront", f"B={B4}: " + ", ".join(
+        f"{key} {results[key]['ms_b4']:.4f} ms"
+        for key, *_ in intra_kernels + deblock_kernels)
+        + " per launch, all equal to the plain versions")
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
     # wild MVs (+-512 quarter samples); on synthetic_abi_p also cold (L2

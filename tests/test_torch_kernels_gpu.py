@@ -8,6 +8,7 @@ so they also run where JAX is not installed:
 
 import hashlib
 import json
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -166,53 +167,81 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
            want)
 
 
-def _device_kernels(call, name):
-    """(call's result, how many times it put the kernel `name` on the card),
-    counted from torch.profiler's device activities."""
+# order -> the intra and deblock kernels of Decoder(order=...), by name
+ORDERS = {"phase": {"intra_phase": intra_phase,
+                    "deblock_phase": deblock_phase},
+          "raster": {"intra_raster": intra_raster,
+                     "deblock_raster": deblock_raster}}
+# edge grids (one MB wide or high, 1 x 1) and 1080p, where B = 4 streams
+# hold far more MBs than the card has resident blocks
+WAVEFRONT_GRIDS = [(1, 1, 1), (1, 6, 1), (6, 1, 1), (7, 5, 1), (120, 68, 1),
+                   (120, 68, 4)]
+
+
+@pytest.mark.parametrize("mb_w,mb_h,B", WAVEFRONT_GRIDS)
+@pytest.mark.parametrize("order", ORDERS)
+def test_wavefront_kernels(dev, order, mb_w, mb_h, B):
+    """K1/K2 (knight-move wavefront) and K5/K6 (row pipeline) against the
+    plain versions on each of WAVEFRONT_GRIDS; each wrapper call counts
+    one launch (test_wavefront_kernels_launch_once counts the card's)."""
+    (intra, intra_fn), (deblock, deblock_fn) = ORDERS[order].items()
+    a, res, init, tables = _random_inputs(mb_w, mb_h, B, mb_w + mb_h, dev)
+    n0 = dict(kernels.LAUNCHES)
+    got = intra_fn(a, *res, *init, mb_w, mb_h)
+    filtered = deblock_fn(*(p.clone() for p in got), tables, mb_w, mb_h)
+    assert kernels.LAUNCHES[intra] == n0[intra] + 1
+    assert kernels.LAUNCHES[deblock] == n0[deblock] + 1
+    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
+    _equal(filtered, deblock_filter_planes(*got, tables, mb_w, mb_h))
+
+
+def test_wavefront_kernels_launch_once(dev):
+    """One call of each of K1, K2, K5 and K6 on each of WAVEFRONT_GRIDS
+    puts that kernel on the card once: one torch.profiler session over
+    all the calls counts as many device launches of each kernel as calls
+    (a call that launched nothing would also fail test_wavefront_kernels).
+    One session, as in chip_smoke.py: on the card, sessions after the
+    first dozen or so in a process came back with no device activity at
+    all."""
     from torch.profiler import ProfilerActivity, profile
+    calls = []
+    for mb_w, mb_h, B in WAVEFRONT_GRIDS:
+        a, res, init, tables = _random_inputs(mb_w, mb_h, B, mb_w + mb_h, dev)
+        planes = tuple(p.to(torch.uint8) for p in init)
+        for (intra, intra_fn), (deblock, deblock_fn) in (
+                o.items() for o in ORDERS.values()):
+            calls.append((intra, partial(intra_fn, a, *res, *init, mb_w,
+                                         mb_h)))
+            calls.append((deblock, partial(deblock_fn, *planes, tables,
+                                           mb_w, mb_h)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = call()
-        torch.cuda.synchronize()
-    return out, sum(e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and name in e.key)
+        for _, call in calls:
+            call()
+            torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for name in {n for n, _ in calls}:
+        assert sum(c for k, c in seen.items() if f"{name}_kernel" in k) \
+            == len(WAVEFRONT_GRIDS), (name, seen)
 
 
-@pytest.mark.parametrize("mb_w,mb_h,B", [(1, 1, 1), (1, 6, 1), (6, 1, 1),
-                                         (7, 5, 1), (120, 68, 1),
-                                         (120, 68, 4)])
-def test_wavefront_kernels(dev, mb_w, mb_h, B):
-    """K1/K2 against the plain versions on edge grids (one MB wide or
-    high, 1 x 1) and at 1080p, where B = 4 streams hold far more MBs than
-    the card has resident blocks; each call puts its kernel on the card
-    once."""
-    a, res, init, tables = _random_inputs(mb_w, mb_h, B, mb_w + mb_h, dev)
-    got, n = _device_kernels(lambda: intra_phase(a, *res, *init, mb_w, mb_h),
-                             "intra_phase_kernel")
-    assert n == 1
-    _equal(got, intra_reconstruct(a, *res, mb_w, mb_h, *init))
-    want = deblock_filter_planes(*got, tables, mb_w, mb_h)
-    filtered, n = _device_kernels(
-        lambda: deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h),
-        "deblock_phase_kernel")
-    assert n == 1
-    _equal(filtered, want)
-
-
-def test_wavefront_kernels_repeat(dev):
-    """50 calls of K1 and of K2 on one 1080p input: a race between an MB
-    and the neighbours it waits on would make some output differ from the
-    first or from the plain version."""
+@pytest.mark.parametrize("order", ORDERS)
+def test_wavefront_kernels_repeat(dev, order):
+    """50 calls of the intra and of the deblock kernel of `order` on one
+    1080p input: a race between an MB and the neighbours it waits on
+    would make some output differ from the first or from the plain
+    version."""
+    intra_fn, deblock_fn = ORDERS[order].values()
     a, res, init, tables = _random_inputs(120, 68, 1, 11, dev)
-    first = intra_phase(a, *res, *init, 120, 68)
+    first = intra_fn(a, *res, *init, 120, 68)
     _equal(first, intra_reconstruct(a, *res, 120, 68, *init))
     for _ in range(49):
-        _equal(intra_phase(a, *res, *init, 120, 68), first)
+        _equal(intra_fn(a, *res, *init, 120, 68), first)
     want = deblock_filter_planes(*first, tables, 120, 68)
     for _ in range(50):
-        _equal(deblock_phase(*(p.clone() for p in first), tables, 120, 68),
+        _equal(deblock_fn(*(p.clone() for p in first), tables, 120, 68),
                want)
 
 
