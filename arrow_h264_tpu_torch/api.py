@@ -75,6 +75,52 @@ class Frame:
         return self.y.tobytes() + self.cb.tobytes() + self.cr.tobytes()
 
 
+class PendingFrame:
+    """An output frame whose planes are still device tensors.
+
+    The batch decoder (parallel.batch.BatchDecoder) does not wait for each
+    frame's device->host copy: `start_fetch` queues the copy of the three
+    planes into pinned host tensors behind the device work that made them
+    and records a CUDA event, and `finalize`, a round later, waits on that
+    event and returns the cropped Frame.  For CPU tensors both are plain
+    copies."""
+
+    __slots__ = ("y", "cb", "cr", "sps", "poc", "_host", "_done")
+
+    def __init__(self, y, cb, cr, sps, poc):
+        self.y, self.cb, self.cr = y, cb, cr
+        self.sps, self.poc = sps, poc
+        self._host = None
+        self._done = None
+
+    def start_fetch(self) -> None:
+        """Queue the copy to the host on the current stream (once)."""
+        if self._host is not None:
+            return
+        planes = (self.y, self.cb, self.cr)
+        if self.y.device.type != "cuda":
+            self._host = tuple(p.numpy().copy() for p in planes)
+            return
+        self._host = tuple(torch.empty(p.shape, dtype=p.dtype,
+                                       pin_memory=True) for p in planes)
+        for h, p in zip(self._host, planes):
+            h.copy_(p, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record()
+
+    def finalize(self) -> Frame:
+        """Wait for the copy (starting it if need be) -> cropped Frame."""
+        self.start_fetch()
+        if self._done is not None:
+            self._done.synchronize()
+            # copy out of the pinned tensors, so that they go back to the
+            # caching host allocator for later rounds
+            self._host = tuple(h.numpy().copy() for h in self._host)
+            self._done = None
+        y, cb, cr = crop_planes(self.sps, *self._host)
+        return Frame(y=y, cb=cb, cr=cr, poc=self.poc)
+
+
 @dataclass
 class DecodeStats:
     """Per-decoder counters."""
@@ -130,6 +176,8 @@ class Decoder:
         self.entropy = entropy
         self._pic_pool = centropy.PicBufPool()
         self._gap_bumped: list = []
+        # set by BatchDecoder: _emit returns PendingFrames (no sync)
+        self.deferred_emit = False
 
     def _pipeline(self, sps: SPS, pps: PPS) -> DevicePipeline:
         key = (sps.seq_parameter_set_id, pps.pic_parameter_set_id,
@@ -329,8 +377,11 @@ class Decoder:
         yield from self.commit(pic, poc, y, cb, cr, pipeline.n_slots,
                                pipeline.store_ref)
 
-    def _emit(self, planes) -> Frame:
+    def _emit(self, planes):
+        """Output planes -> Frame, or PendingFrame with deferred_emit."""
         y, cb, cr, sps, poc = planes
+        if self.deferred_emit:
+            return PendingFrame(y, cb, cr, sps, poc)
         t0 = time.perf_counter()
         y, cb, cr = (p.cpu().numpy() for p in (y, cb, cr))
         self.stats.emit_sync_s += time.perf_counter() - t0

@@ -11,10 +11,11 @@ stages run the raster-order kernels K5/K6 in place of K1/K2; every other
 stage is the same.  Every function takes a leading stream axis [B, ...];
 the single-stream `DevicePipeline` runs B = 1.
 
-The host ships the dense ABI (`ABI_DEVICE_KEYS`) with
-`torch.from_numpy(...).to(device)`; coefficient classes that are all zero
-in the frame stay on the host and their residual paths are skipped.  A
-frame runs one of two modes: no inter MBs (no MC) or inter.
+The host ships the dense ABI (`ABI_DEVICE_KEYS`) through pinned staging
+tensors (`upload_batch`, one per lane of a batch); coefficient classes
+that are all zero in every lane stay on the host and their residual paths
+are skipped.  A batch runs one of two modes: no inter MBs (no MC) or
+inter.  `store_refs_fn` is the batch's one reference store a round.
 """
 
 from __future__ import annotations
@@ -47,25 +48,75 @@ ORDERS = {"phase": (intra_phase, deblock_phase),
           "raster": (intra_raster, deblock_raster)}
 
 
-def upload_abi(abi, device) -> dict:
-    """Host FrameABI -> dict of device tensors (no stream axis).
+def _stage(rows, device):
+    """Host arrays of one shape, one per lane -> int32 tensor [B, ...] on
+    `device`.  For a CUDA device the lanes are stacked into a pinned
+    staging tensor and copied with non_blocking=True (the caching host
+    allocator keeps the staging memory until the copy has run)."""
+    shape = (len(rows),) + np.shape(rows[0])
+    if device.type != "cuda":
+        return torch.from_numpy(np.stack(rows).astype(np.int32, copy=False))
+    buf = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+    arr = buf.numpy()
+    for i, r in enumerate(rows):
+        if np.shape(r) != shape[1:]:
+            raise ValueError(f"lane {i}: shape {np.shape(r)}, lane 0 "
+                             f"{shape[1:]}")
+        arr[i] = r
+    return buf.to(device, non_blocking=True)
 
-    All-zero coefficient classes are left out (residual_planes skips
-    them).  A frame with dense per-cell weights (abi["wp"], the slice-row
-    overflow fallback of ops.abi) ships those instead of the tables."""
-    dense_w = "wp" in abi
+
+def lane_index(values, device):
+    """int64 index tensor of `values` on `device`.  For a CUDA device it
+    goes through pinned memory without waiting for the device's queue, as
+    a copy of torch.tensor(values) would."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_batch(abis, device) -> dict:
+    """Host FrameABIs, one per lane -> dict of device tensors [B, ...].
+
+    A coefficient class is left out only when it is all zero in every lane
+    (residual_planes skips it).  Lanes ship the per-slice weight tables
+    (wtab, slogwd) unless one of them carries dense per-cell weights
+    (abi["wp"], the slice-row overflow fallback of ops.abi): then the
+    whole batch ships wp/logwd, the other lanes' expanded on the device by
+    resolve_weights from their own tables."""
+    device = torch.device(device)
+    dense = [i for i, a in enumerate(abis) if "wp" in a]
     keys = [k for k in ABI_DEVICE_KEYS
-            if not (dense_w and k in ("wtab", "slogwd"))]
-    if dense_w:
-        keys += ["wp", "logwd"]
+            if not (dense and k in ("wtab", "slogwd"))]
     out = {}
     for k in keys:
-        a = np.asarray(abi[k])
-        if k in COEFF_KEYS and not a.any():
+        rows = [np.asarray(a[k]) for a in abis]
+        if k in COEFF_KEYS and not any(r.any() for r in rows):
             continue
-        a = np.require(a, dtype=np.int32, requirements=("C", "W"))
-        out[k] = torch.from_numpy(a).to(device)
+        out[k] = _stage(rows, device)
+    if dense:
+        tables = [i for i in range(len(abis)) if i not in dense]
+        for k in ("wp", "logwd"):
+            rows = [np.asarray(abis[i][k]) for i in dense]
+            out[k] = torch.empty((len(abis),) + rows[0].shape,
+                                 dtype=torch.int32, device=device)
+            out[k][lane_index(dense, device)] = _stage(rows, device)
+        if tables:
+            ti = lane_index(tables, device)
+            sub = {k: out[k][ti] for k in ("slice_id", "refidx")}
+            for k in ("wtab", "slogwd"):
+                sub[k] = _stage([abis[i][k] for i in tables], device)
+            sub = resolve_weights(sub)
+            for k in ("wp", "logwd"):
+                out[k][ti] = sub[k]
     return out
+
+
+def upload_abi(abi, device) -> dict:
+    """Host FrameABI -> dict of device tensors (no stream axis), as
+    upload_batch uploads one lane."""
+    return {k: v[0] for k, v in upload_batch([abi], device).items()}
 
 
 def resolve_weights(abi: dict) -> dict:
@@ -93,6 +144,38 @@ def dpb_alloc(mb_w: int, mb_h: int, n_slots: int, device):
                         dtype=torch.uint8, device=device),
             torch.zeros((n_slots, 2, H // 2 + 2 * PADC, W // 2 + 2 * PADC),
                         dtype=torch.uint8, device=device))
+
+
+def stream_params(sps: SPS, pps: PPS) -> tuple:
+    """The parameters of a stream that decode_consts reads, hashable: (mb_w,
+    mb_h, 4x4 and 8x8 scaling lists, chroma QP offsets, transform
+    bypass).  Streams decoded in one batch must share them."""
+    if not sps.frame_mbs_only_flag:
+        raise NotImplementedError(
+            "interlaced SPS (field pictures) is not ported yet")
+    sl4 = pps.scaling_lists_4x4 if pps.scaling_lists_4x4 is not None \
+        else sps.scaling_lists_4x4
+    sl8 = pps.scaling_lists_8x8 if pps.scaling_lists_8x8 is not None \
+        else sps.scaling_lists_8x8
+    return (sps.pic_width_in_mbs, sps.pic_height_in_map_units,
+            tuple(map(tuple, sl4)), tuple(map(tuple, sl8)),
+            (pps.chroma_qp_index_offset, pps.chroma_qp_offset(1)),
+            bool(sps.qpprime_y_zero_transform_bypass_flag))
+
+
+def dpb_slots(sps: SPS) -> int:
+    """Device DPB slots of a stream: its reference frames plus the picture
+    being decoded."""
+    return max(2, min(sps.max_num_ref_frames, 32) + 1)
+
+
+def decode_consts(params: tuple, device, order: str = "phase") -> dict:
+    """Keyword arguments of decode_frames_batch_fn other than `inter`, for
+    pictures of stream_params `params` on `device`."""
+    mb_w, mb_h, sl4, sl8, cqp_off, bypass = params
+    ws4, ws8 = make_ws_consts(sl4, sl8)
+    return dict(mb_w=mb_w, mb_h=mb_h, ws4=ws4.to(device), ws8=ws8.to(device),
+                cqp_off=cqp_off, bypass=bypass, order=order)
 
 
 def _mc_pred(abi: dict, dpb_y, dpb_c, mb_w: int, mb_h: int):
@@ -140,12 +223,25 @@ def decode_frame_fn(abi: dict, dpb_y, dpb_c, **kw):
     return tuple(p[0] for p in out)
 
 
+def store_refs_fn(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b, cr_b) -> None:
+    """One reference store for a batch: lane lanes[k]'s picture (y_b,
+    cb_b, cr_b [B, ...]) goes into slot slots[k] of its DPB row (dpb_y_b
+    [B, S, 4, Hp, Wp], dpb_c_b [B, S, 2, ...]), in place, with one index
+    assignment per DPB.  The half-pel planes are computed for the storing
+    lanes only; a lane that is not in `lanes` is left untouched."""
+    if not lanes:
+        return
+    li, si = (lane_index(v, dpb_y_b.device) for v in (lanes, slots))
+    dpb_y_b[li, si] = torch.stack(halfpel_planes(y_b[li]), 1)
+    dpb_c_b[li, si] = torch.stack((pad_chroma(cb_b[li]),
+                                   pad_chroma(cr_b[li])), 1)
+
+
 def store_ref_fn(dpb_y, dpb_c, slot: int, y, cb, cr) -> None:
     """Write a reference picture's half-pel planes and padded chroma into
     DPB slot `slot`, in place (dpb_y [S, 4, Hp, Wp], dpb_c [S, 2, ...])."""
-    dpb_y[slot] = torch.stack(halfpel_planes(y))
-    dpb_c[slot, 0] = pad_chroma(cb)
-    dpb_c[slot, 1] = pad_chroma(cr)
+    store_refs_fn(dpb_y[None], dpb_c[None], [0], [slot], y[None], cb[None],
+                  cr[None])
 
 
 class DevicePipeline:
@@ -155,24 +251,11 @@ class DevicePipeline:
         if order not in ORDERS:
             raise ValueError(f"order {order!r}: expected one of "
                              f"{sorted(ORDERS)}")
-        if not sps.frame_mbs_only_flag:
-            raise NotImplementedError(
-                "interlaced SPS (field pictures) is not ported yet")
-        self.sps, self.pps = sps, pps
         self.device = torch.device(device)
-        self.mb_w, self.mb_h = sps.pic_width_in_mbs, sps.pic_height_in_map_units
-        sl4 = pps.scaling_lists_4x4 if pps.scaling_lists_4x4 is not None \
-            else sps.scaling_lists_4x4
-        sl8 = pps.scaling_lists_8x8 if pps.scaling_lists_8x8 is not None \
-            else sps.scaling_lists_8x8
-        ws4, ws8 = make_ws_consts(sl4, sl8)
-        self._kw = dict(
-            mb_w=self.mb_w, mb_h=self.mb_h, ws4=ws4.to(self.device),
-            ws8=ws8.to(self.device),
-            cqp_off=(pps.chroma_qp_index_offset, pps.chroma_qp_offset(1)),
-            bypass=bool(sps.qpprime_y_zero_transform_bypass_flag),
-            order=order)
-        self.n_slots = max(2, min(sps.max_num_ref_frames, 32) + 1)
+        self._kw = decode_consts(stream_params(sps, pps), self.device, order)
+        self.n_slots = dpb_slots(sps)
+        self.sps, self.pps = sps, pps
+        self.mb_w, self.mb_h = self._kw["mb_w"], self._kw["mb_h"]
         self.dpb_y, self.dpb_c = dpb_alloc(self.mb_w, self.mb_h,
                                            self.n_slots, self.device)
 

@@ -23,6 +23,7 @@ from ..common.tables import (
 )
 
 from .intra import build_schedule
+from .transforms import device_copy
 
 _ALPHA = torch.tensor(ALPHA_TABLE, dtype=torch.int32)
 _BETA = torch.tensor(BETA_TABLE, dtype=torch.int32)
@@ -97,8 +98,8 @@ def deblock_tables(abi, mb_w: int, mb_h: int, cqp_off=(0, 0)):
     a_off = abi["alpha_off"].reshape(g)
     b_off = abi["beta_off"].reshape(g)
     tr8 = (abi["tr8"] > 0).reshape(g)
-    alpha_t, beta_t = _ALPHA.to(dev), _BETA.to(dev)
-    tc0_t, cqp_t = _TC0.to(dev), _CQP.to(dev)
+    alpha_t, beta_t, tc0_t, cqp_t = (device_copy(t, dev)
+                                     for t in (_ALPHA, _BETA, _TC0, _CQP))
 
     def shift_left(a):   # value of MB (my, mx-1); column 0 is masked
         return torch.cat([a[:, :, :1], a[:, :, :-1]], 2)

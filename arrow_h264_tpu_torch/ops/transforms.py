@@ -22,6 +22,17 @@ from ..common.tables import (
 from .abi import KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM
 
 _CQP = torch.tensor(CHROMA_QP_TABLE, dtype=torch.int32)
+_on_device: dict = {}
+
+
+def device_copy(t, device):
+    """The module constant `t` on `device`, copied once per device: a
+    copy from pageable host memory at every call would wait for the
+    device's queue to drain."""
+    key = (id(t), device)
+    if key not in _on_device:
+        _on_device[key] = t.to(device)
+    return _on_device[key]
 
 # coefficient classes the upload may leave out when they are all zero in
 # the frame (residual_planes then skips their dequant/IDCT path)
@@ -281,7 +292,7 @@ def residual_planes(abi, mb_w: int, mb_h: int, ws4, ws8, cqp_off=(0, 0),
         res_y = torch.where(is_pcm_plane, pcm_plane, res_y)
 
     # ---- chroma
-    cqp = _CQP.to(dev)
+    cqp = device_copy(_CQP, dev)
     res_c = []
     for pl in range(2):
         if "chroma_ac" in abi or "chroma_dc" in abi:

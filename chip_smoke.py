@@ -31,6 +31,22 @@ Phases (each prints a line; any failure exits non-zero):
               (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
               frame's MD5 must equal the committed libavcodec golden, and
               every kernel of each path must have launched in its decode
+  7. batch    arrow_h264_tpu_torch.parallel.batch.BatchDecoder(8,
+              device="cuda") decodes 8 lanes that cycle through the four
+              committed 1080p streams (BATCH_STREAMS: 6, 6, 5 and 4
+              frames, so lanes finish in different rounds and the dummy
+              lane runs), once with each order: every lane's frame MD5s
+              must equal its golden, and the order's intra and deblock
+              kernels must have launched once a round and K3/K4 once a
+              round with an inter lane, not once a lane.  Then with one
+              lane cut in half and junk appended (its error recorded, the
+              other 7 exact); with materialize=False (every frame a
+              PendingFrame on the card whose finalize() gives the golden);
+              and timed: frames/s of the whole batch at B = 8 and B = 32
+              (32 lanes cycling the four streams), and in the same
+              process the single-stream Decoder over the four streams one
+              after another, with the lanes' summed host_parse_s,
+              device_dispatch_s and emit_sync_s
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -42,11 +58,15 @@ count each input the work needs read once and each output written once,
 from this run's inputs (see the *_need functions).  No single PyTorch
 call computes H.264 intra prediction, the deblocking filter or the
 quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
-Each kernel also gets `device_launches`, the kernels it puts on the card
-per wrapper call.  K1, K2, K5 and K6 also get `ms_b4` and `bound_ms_b4`:
-the same for four 1080p frames in one launch.  K3 and K4 also get `ms_b8`
-and `bound_ms_b8` (eight 1080p streams in one launch) and `ms_cold` (L2
-flushed before each launch).  The other MC figures (launched back to
+Each kernel's `launches` counts its wrapper's launches in the main path's
+run: BatchDecoder(8) over the batch lanes with the order that runs the
+kernel (one a round, so 6 for the six rounds: the same number as the
+single-stream decode of the 6-frame smoke stream, whose count is
+`launches_decode`).  Each kernel also gets `device_launches`, the kernels
+it puts on the card per wrapper call.  K1, K2, K5 and K6 also get `ms_b4`
+and `bound_ms_b4`: the same for four 1080p frames in one launch.  K3 and
+K4 also get `ms_b8` and `bound_ms_b8` (eight 1080p streams in one launch)
+and `ms_cold` (L2 flushed before each launch).  The other MC figures (launched back to
 back from the host without the device sleep, the smoke stream's
 pictures, the B = 8 variants) are log lines only.
 
@@ -74,6 +94,10 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
+BATCH_STREAMS = [STREAM] + [STREAM.parent / f"batch_1080p_s{i}.264"
+                            for i in (1, 2, 3)]
+BATCH_LANES = 8                # lanes of the exactness runs
+BATCH_WIDE = 32                # lanes of the wide timing run
 MB_W, MB_H = 120, 68          # 1920x1088 coded
 SEED = 0
 KERNEL_REPS = 20
@@ -260,6 +284,119 @@ def compare(name: str, got, want) -> int:
         sys.exit(f"{name}: kernel differs from its plain version "
                  f"(max abs err {err})")
     return err
+
+
+def batch_phase(paths: dict, smi: str) -> dict:
+    """The batch phase (module docstring); returns {order: LAUNCHES of the
+    main path's run, BatchDecoder(BATCH_LANES) with that order}."""
+    from arrow_h264_tpu_torch.api import Decoder, PendingFrame
+    from arrow_h264_tpu_torch.ops import kernels
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    data = [p.read_bytes() for p in BATCH_STREAMS]
+    golden = [json.loads(p.with_suffix(".json").read_text())["md5"]
+              for p in BATCH_STREAMS]
+
+    def run(n, order="phase", materialize=True, corrupt=None):
+        """Decode n lanes cycling through BATCH_STREAMS; check every lane
+        but `corrupt` against its golden and the launches against the
+        rounds.  Returns (decoder, frames, wall seconds, launches)."""
+        datas = [data[i % len(data)] for i in range(n)]
+        if corrupt is not None:
+            d = datas[corrupt]
+            datas[corrupt] = d[:len(d) // 2] + b"\x00\x17" * 40
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with BatchDecoder(n, device="cuda", order=order,
+                          materialize=materialize) as bd:
+            outs = bd.decode(datas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(kernels.LAUNCHES)
+        what = f"batch B={n} order={order}" + (
+            "" if materialize else " materialize=False") + (
+            "" if corrupt is None else f" lane {corrupt} corrupt")
+        if any(d.entropy != "cpp" for d in bd.decoders):
+            sys.exit(f"{what}: host entropy is not the C++ library")
+        for i, frames in enumerate(outs):
+            if i == corrupt:
+                if bd.errors[i] is None:
+                    sys.exit(f"{what}: the corrupt lane raised no error")
+                continue
+            if bd.errors[i] is not None:
+                sys.exit(f"{what}: lane {i} failed: {bd.errors[i]!r}")
+            if not materialize:
+                if not all(isinstance(f, PendingFrame)
+                           and f.y.device.type == "cuda" for f in frames):
+                    sys.exit(f"{what}: lane {i} has frames that are not "
+                             "PendingFrames on the card")
+                frames = [f.finalize() for f in frames]
+            md5 = [hashlib.md5(f.planar()).hexdigest() for f in frames]
+            if md5 != golden[i % len(data)]:
+                name = BATCH_STREAMS[i % len(data)].name
+                sys.exit(f"{what}: lane {i} ({name}) MD5s differ from the "
+                         "golden")
+        intra, deblock, *mc = paths[order]
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update({intra: bd.rounds, deblock: bd.rounds,
+                     **dict.fromkeys(mc, bd.inter_rounds)})
+        if got != want or not 0 < bd.inter_rounds <= bd.rounds:
+            sys.exit(f"{what}: launches {got}, expected {want} (one a round; "
+                     f"{bd.rounds} rounds, {bd.inter_rounds} with an inter "
+                     "lane)")
+        if bd.rounds != max(len(golden[i % len(data)]) for i in range(n)
+                            if i != corrupt):
+            sys.exit(f"{what}: {bd.rounds} rounds")
+        return bd, outs, wall, got
+
+    def report(what, bd, wall):
+        frames = sum(s["frames"] for s in bd.stats)
+        sums = {k: round(sum(s[k] for s in bd.stats), 4) for k in
+                ("host_parse_s", "device_dispatch_s", "emit_sync_s")}
+        log("batch", f"{what}: {frames} frames in {wall:.4f} s, "
+            f"{frames / wall:.3f} frames/s of the batch ({bd.rounds} rounds, "
+            f"{bd.inter_rounds} inter); lanes' summed {sums}; on {smi}")
+
+    run(BATCH_LANES)                             # warm-up: first-call costs
+    launches = {}
+    for order in paths:
+        bd, _, wall, launches[order] = run(BATCH_LANES, order)
+        log("batch", f"order={order}: {BATCH_LANES} lanes MD5 == golden; "
+            f"launches {launches[order]} in {bd.rounds} rounds")
+        report(f"B={BATCH_LANES} order={order}", bd, wall)
+    bad = 2
+    bd, *_ = run(BATCH_LANES, corrupt=bad)
+    log("batch", f"lane {bad} corrupt: errors[{bad}] = "
+        f"{type(bd.errors[bad]).__name__}: {bd.errors[bad]}; the other "
+        f"{BATCH_LANES - 1} lanes MD5 == golden")
+    run(BATCH_LANES, materialize=False)
+    log("batch", "materialize=False: every frame a PendingFrame on the "
+        "card, finalize() == golden")
+    run(BATCH_WIDE)                              # warm-up at B = 32
+    bd, _, wall, _ = run(BATCH_WIDE)
+    report(f"B={BATCH_WIDE} order=phase", bd, wall)
+
+    # the single-stream Decoder over the same four streams, one after
+    # another, in the same process
+    frames, wall, stats = 0, 0.0, []
+    for d, md5 in zip(data, golden):
+        dec = Decoder(device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = [hashlib.md5(f.planar()).hexdigest()
+               for f in dec.decode_annexb(d)]
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t
+        if got != md5:
+            sys.exit("single-stream decode: MD5s differ from the golden")
+        frames += len(got)
+        stats.append(dec.stats.as_dict())
+    sums = {k: round(sum(s[k] for s in stats), 4)
+            for k in ("host_parse_s", "device_dispatch_s", "emit_sync_s")}
+    log("batch", f"single-stream Decoder over the {len(data)} streams: "
+        f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} frames/s; "
+        f"summed {sums}; on {smi}")
+    return launches
 
 
 def main() -> None:
@@ -598,12 +735,15 @@ def main() -> None:
             f"{cold_s:.3f} s) on {smi}; launches {launches[order]}; stats "
             f"{dec.stats.as_dict()}")
 
+    batch_launches = batch_phase(paths, smi)
+
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):
         sys.exit("the port imported jax or the JAX package")
     for key, r in results.items():
-        r["launches"] = launches["raster" if key.endswith("_raster")
-                                 else "phase"][key]
+        order = "raster" if key.endswith("_raster") else "phase"
+        r["launches"] = batch_launches[order][key]
+        r["launches_decode"] = launches[order][key]
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

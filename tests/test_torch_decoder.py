@@ -17,7 +17,10 @@ from arrow_h264_tpu_torch.models.pipeline import DevicePipeline
 from tests.torch_ref import decode_jax, decode_port, encode
 from tools import streams
 
-SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
+DATA = Path(__file__).resolve().parent / "data"
+# the committed 1080p streams that chip_smoke.py decodes (tools/smoke_stream.py)
+STREAMS_1080P = {"smoke_1080p_high": 6, "batch_1080p_s1": 6,
+                 "batch_1080p_s2": 5, "batch_1080p_s3": 4}
 
 
 @pytest.mark.parametrize("cfg", [1, 2, 4])
@@ -34,13 +37,16 @@ def test_decoder_matches_jax_and_golden(h264ref, tmp_path, cfg):
     assert np.array_equal(ours, decode_jax(path))
 
 
-def test_smoke_stream_golden(h264ref):
-    """The committed smoke stream still decodes (libavcodec) to the
+@pytest.mark.parametrize("name", STREAMS_1080P)
+def test_smoke_stream_golden(h264ref, name):
+    """Each committed 1080p stream still decodes (libavcodec) to the
     committed per-frame MD5s that chip_smoke.py checks the port against."""
-    meta = json.loads(SMOKE.with_suffix(".json").read_text())
-    golden, w, h = streams.golden_decode(str(SMOKE))
+    path = DATA / f"{name}.264"
+    meta = json.loads(path.with_suffix(".json").read_text())
+    golden, w, h = streams.golden_decode(str(path))
     assert (w, h, len(golden)) == (meta["width"], meta["height"],
-                                   meta["frames"]) == (1920, 1080, 6)
+                                   meta["frames"]) \
+        == (1920, 1080, STREAMS_1080P[name])
     assert [hashlib.md5(f.tobytes()).hexdigest() for f in golden] \
         == meta["md5"]
 

@@ -39,6 +39,8 @@ from arrow_h264_tpu_torch.ops.transforms import (
 pytestmark = pytest.mark.cuda
 
 SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
+# QCIF config-4 lanes of 3, 4, 5 and 3 frames (tools/smoke_stream.py)
+QCIF_LANES = [SMOKE.parent / f"batch_qcif_s{i}.264" for i in range(1, 5)]
 SIZES = [(7, 5), (22, 18)]            # ragged grid edges; CIF
 RASTER_SIZES = [(7, 5), (120, 68)]     # ragged grid edges; 1080p
 MC_SIZES = [(1, 1), (7, 5), (22, 18), (120, 68)]
@@ -367,3 +369,30 @@ def test_decoder_cuda_smoke_stream(dev, order, path):
     assert md5 == meta["md5"]
     assert {k for k, v in kernels.LAUNCHES.items() if v} == path, \
         kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_batch_decoder_cuda(dev, order):
+    """BatchDecoder(4) on the card: every lane equal to the port's CPU
+    decode of the same bytes and to its golden hashes; the order's intra
+    and deblock kernels launched once a round and K3/K4 once a round with
+    an inter lane, not once a lane."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    datas = [p.read_bytes() for p in QCIF_LANES]
+    kernels.reset_launches()
+    with BatchDecoder(len(datas), device=dev, order=order) as bd:
+        outs = bd.decode(datas)
+    launches = dict(kernels.LAUNCHES)
+    assert bd.errors == [None] * len(datas)
+    assert bd.rounds == 5 and 0 < bd.inter_rounds < bd.rounds
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(ORDERS[order], bd.rounds))
+    want.update(mc_luma=bd.inter_rounds, mc_chroma=bd.inter_rounds)
+    assert launches == want
+    for p, data, frames in zip(QCIF_LANES, datas, outs):
+        meta = json.loads(p.with_suffix(".json").read_text())
+        ours = [f.planar() for f in frames]
+        assert [hashlib.md5(b).hexdigest() for b in ours] == meta["md5"]
+        assert ours == [f.planar() for f in Decoder(
+            device="cpu", order=order).decode_annexb(data)]
