@@ -11,8 +11,11 @@ Reconstruction runs in `models.pipeline.DevicePipeline` on `device`;
 `order` chooses its intra and deblock kernels ("phase", the default: the
 knight-move wavefront; "raster": raster order within each MB row, one
 worker per row, two MBs behind the row above).
-Progressive Baseline/Main/High streams; interlaced (field) streams raise
-NotImplementedError.
+Progressive Baseline/Main/High streams, and interlaced streams whose
+pictures are all fields (PAFF): each field is decoded as a picture of
+half the frame's height, and a field pair is output as one woven frame.
+MBAFF and frame pictures of an interlaced SPS are rejected by the slice
+header parse.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from .bitstream.params import PPS, SPS, parse_pps, parse_sps
 from .bitstream.sei import SEIMessage, parse_sei_rbsp
 from .bitstream.slicehdr import parse_slice_header
 from .conceal import conceal_abi, nearest_ref_pic, slice_coverage
-from .dpb import DPB
+from .dpb import DPB, WovenPair
 from .host import centropy
 from .mb.parse import PictureParse
 from .models.pipeline import ORDERS, DevicePipeline
@@ -323,6 +326,9 @@ class Decoder:
             abi = centropy.pack_frame_cpp(pic, poc)
         else:
             abi = pack_frame(pic, poc)
+        hdr0 = pic.headers[0] if pic.headers else None
+        if hdr0 is not None and hdr0.field_pic_flag:
+            abi["cvoff"] = field_cvoff(pic.slice_reflists, hdr0.parity)
         if self._trace is not None:
             trace_frame_abi(self._trace, abi, pic.sps.pic_width_in_mbs,
                             pic.sps.pic_height_in_map_units,
@@ -378,7 +384,16 @@ class Decoder:
                                pipeline.store_ref)
 
     def _emit(self, planes):
-        """Output planes -> Frame, or PendingFrame with deferred_emit."""
+        """Output planes -> Frame, or PendingFrame with deferred_emit.  A
+        field pair (dpb.WovenPair) is woven on the device into one frame
+        with the smaller POC of the two."""
+        if isinstance(planes, WovenPair):
+            (yt, cbt, crt, sps, poct), (yb, cbb, crb, _, pocb) = \
+                planes.top, planes.bottom
+            y, cb, cr = (torch.stack((t, b), 1).reshape(2 * t.shape[0],
+                                                        t.shape[1])
+                         for t, b in ((yt, yb), (cbt, cbb), (crt, crb)))
+            planes = (y, cb, cr, sps, min(poct, pocb))
         y, cb, cr, sps, poc = planes
         if self.deferred_emit:
             return PendingFrame(y, cb, cr, sps, poc)
@@ -387,6 +402,24 @@ class Decoder:
         self.stats.emit_sync_s += time.perf_counter() - t0
         y, cb, cr = crop_planes(sps, y, cb, cr)
         return Frame(y=y, cb=cb, cr=cr, poc=poc)
+
+
+def field_cvoff(slice_reflists, parity: int) -> np.ndarray:
+    """int32 [64]: the vertical chroma offset, in 1/8 chroma samples, of
+    each DPB slot that a field picture of `parity` (1 top, 2 bottom)
+    references (spec 8.4.1.4.1): -2 where the top field reads a bottom
+    field, +2 where the bottom field reads a top field, else 0."""
+    cvoff = np.zeros(64, np.int32)
+    for l0, l1 in slice_reflists:
+        for p in (*l0, *l1):
+            # non-existing gap placeholders share slot 0 with a real
+            # picture (parse_pictures); one must not set the real
+            # picture's offset (a conforming stream reads no
+            # non-existing field)
+            if p.slot >= 0 and p.parity and not p.non_existing and \
+                    p.parity != parity:
+                cvoff[p.slot] = -2 if parity == 1 else 2
+    return cvoff
 
 
 def decode_annexb(data: bytes, device="cuda"):

@@ -35,6 +35,10 @@
 //   contiguous bytes a row, which coalesces as well as wider stores
 //   would; two cells a thread would halve the threads for no fewer bytes,
 //   so the design keeps one.
+//   The vertical chroma MV of each read takes its slot's cvoff (spec
+//   8.4.1.4.1: a field picture reading a field of the other parity), one
+//   4-byte load of a table of at most 33 ints a stream, which the L1
+//   holds; frames pass zeros, so both take one path.
 // Offsets into the DPB and the output are 64-bit.  Plain C, no
 // intrinsics.
 //
@@ -44,6 +48,8 @@
 //   mv [B, n, 4, 4, 2, 2] int32 (y4, x4, list, (x, y)) in quarter samples
 //   refslot [B, n, 4, 4, 2] int32, -1 = list unused (output 0), >= S
 //     clamps to S - 1
+//   cvoff [B, S] int32, 1/8 chroma samples added to the vertical chroma
+//     MV of reads from the slot (-2, 0 or +2)
 //   out_y [B, 2, H, W] uint8; out_c [B, 2 (list), 2 (plane), H/2, W/2]
 
 #include <cuda_runtime.h>
@@ -146,6 +152,7 @@ __global__ void mc_luma_kernel(const uint8_t* __restrict__ dpb,
 __global__ void mc_chroma_kernel(const uint8_t* __restrict__ dpb,
                                  const int64_t* __restrict__ mv,
                                  const int32_t* __restrict__ refslot,
+                                 const int32_t* __restrict__ cvoff,
                                  uint16_t* __restrict__ out, int S, int mb_w,
                                  int mb_h) {
   const int WC = mb_w * 4, HC = mb_h * 4;   // 2x2 cells a row, a column
@@ -166,7 +173,8 @@ __global__ void mc_chroma_kernel(const uint8_t* __restrict__ dpb,
   }
   slot = slot < S ? slot : S - 1;
   const int64_t m = mv[cell];
-  const int mvx = (int32_t)(uint32_t)m, mvy = (int32_t)(m >> 32);
+  const int mvx = (int32_t)(uint32_t)m;
+  const int mvy = (int32_t)(m >> 32) + cvoff[(long long)b * S + slot];
   const int Hp = Hc + 2 * PADC, Wp = WC * 2 + 2 * PADC;
   const int xi = 2 * cx + (mvx >> 3) + PADC;
   const int yi = 2 * cy + (mvy >> 3) + PADC;
@@ -213,10 +221,12 @@ extern "C" int mc_luma_launch(const uint8_t* dpb, const int32_t* mv,
 }
 
 extern "C" int mc_chroma_launch(const uint8_t* dpb, const int32_t* mv,
-                                const int32_t* refslot, uint8_t* out, int B,
-                                int S, int mb_w, int mb_h, void* stream) {
+                                const int32_t* refslot, const int32_t* cvoff,
+                                uint8_t* out, int B, int S, int mb_w,
+                                int mb_h, void* stream) {
   const dim3 grid(blocks(mb_w * 4 * mb_h * 4), B * 2);
   mc_chroma_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      dpb, (const int64_t*)mv, refslot, (uint16_t*)out, S, mb_w, mb_h);
+      dpb, (const int64_t*)mv, refslot, cvoff, (uint16_t*)out, S, mb_w,
+      mb_h);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,11 @@ stages run the raster-order kernels K5/K6 in place of K1/K2; every other
 stage is the same.  Every function takes a leading stream axis [B, ...];
 the single-stream `DevicePipeline` runs B = 1.
 
+Field pictures (all-field PAFF) take the same path at field height: each
+reference field has its own DPB slot, K4 reads a per-slot vertical chroma
+offset for references of the other parity (`cvoff`), and the deblock
+tables follow the field rules (`deblock_tables(field=True)`).
+
 The host ships the dense ABI (`ABI_DEVICE_KEYS`) through pinned staging
 tensors (`upload_batch`, one per lane of a batch); coefficient classes
 that are all zero in every lane stay on the host and their residual paths
@@ -76,8 +81,13 @@ def lane_index(values, device):
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def upload_batch(abis, device) -> dict:
+def upload_batch(abis, device, n_slots: int | None = None) -> dict:
     """Host FrameABIs, one per lane -> dict of device tensors [B, ...].
+
+    Field pictures carry `cvoff` (api.Decoder.pack_abi: one entry per DPB
+    slot of the 64 the host table holds); when any lane has one, the
+    batch ships cvoff [B, n_slots], zeros for lanes without.  An entry
+    at or past n_slots must be 0 (no picture can be stored there).
 
     A coefficient class is left out only when it is all zero in every lane
     (residual_planes skips it).  Lanes ship the per-slice weight tables
@@ -95,6 +105,17 @@ def upload_batch(abis, device) -> dict:
         if k in COEFF_KEYS and not any(r.any() for r in rows):
             continue
         out[k] = _stage(rows, device)
+    cv = [a.get("cvoff") for a in abis]
+    if any(c is not None for c in cv):
+        if n_slots is None:
+            raise ValueError("field pictures: upload_batch needs n_slots")
+        rows = [np.zeros(n_slots, np.int32) if c is None else np.asarray(c)
+                for c in cv]
+        for i, r in enumerate(rows):
+            if r[n_slots:].any():
+                raise ValueError(f"lane {i}: cvoff of a slot past the "
+                                 f"{n_slots} DPB slots")
+        out["cvoff"] = _stage([r[:n_slots] for r in rows], device)
     if dense:
         tables = [i for i in range(len(abis)) if i not in dense]
         for k in ("wp", "logwd"):
@@ -113,10 +134,10 @@ def upload_batch(abis, device) -> dict:
     return out
 
 
-def upload_abi(abi, device) -> dict:
+def upload_abi(abi, device, n_slots: int | None = None) -> dict:
     """Host FrameABI -> dict of device tensors (no stream axis), as
     upload_batch uploads one lane."""
-    return {k: v[0] for k, v in upload_batch([abi], device).items()}
+    return {k: v[0] for k, v in upload_batch([abi], device, n_slots).items()}
 
 
 def resolve_weights(abi: dict) -> dict:
@@ -149,10 +170,10 @@ def dpb_alloc(mb_w: int, mb_h: int, n_slots: int, device):
 def stream_params(sps: SPS, pps: PPS) -> tuple:
     """The parameters of a stream that decode_consts reads, hashable: (mb_w,
     mb_h, 4x4 and 8x8 scaling lists, chroma QP offsets, transform
-    bypass).  Streams decoded in one batch must share them."""
-    if not sps.frame_mbs_only_flag:
-        raise NotImplementedError(
-            "interlaced SPS (field pictures) is not ported yet")
+    bypass, field).  mb_h counts the MB rows of a coded picture: of a
+    field, for an interlaced SPS, whose pictures are all fields (MBAFF
+    and frame pictures of such an SPS are rejected by the slice header
+    parse).  Streams decoded in one batch must share them."""
     sl4 = pps.scaling_lists_4x4 if pps.scaling_lists_4x4 is not None \
         else sps.scaling_lists_4x4
     sl8 = pps.scaling_lists_8x8 if pps.scaling_lists_8x8 is not None \
@@ -160,42 +181,52 @@ def stream_params(sps: SPS, pps: PPS) -> tuple:
     return (sps.pic_width_in_mbs, sps.pic_height_in_map_units,
             tuple(map(tuple, sl4)), tuple(map(tuple, sl8)),
             (pps.chroma_qp_index_offset, pps.chroma_qp_offset(1)),
-            bool(sps.qpprime_y_zero_transform_bypass_flag))
+            bool(sps.qpprime_y_zero_transform_bypass_flag),
+            not sps.frame_mbs_only_flag)
 
 
 def dpb_slots(sps: SPS) -> int:
-    """Device DPB slots of a stream: its reference frames plus the picture
-    being decoded."""
-    return max(2, min(sps.max_num_ref_frames, 32) + 1)
+    """Device DPB slots of a stream: its reference pictures plus the
+    picture being decoded.  Of an interlaced SPS each reference frame is
+    two fields, each in a slot of its own."""
+    per_frame = 1 if sps.frame_mbs_only_flag else 2
+    return max(2, min(sps.max_num_ref_frames * per_frame, 32) + 1)
 
 
 def decode_consts(params: tuple, device, order: str = "phase") -> dict:
     """Keyword arguments of decode_frames_batch_fn other than `inter`, for
     pictures of stream_params `params` on `device`."""
-    mb_w, mb_h, sl4, sl8, cqp_off, bypass = params
+    mb_w, mb_h, sl4, sl8, cqp_off, bypass, field = params
     ws4, ws8 = make_ws_consts(sl4, sl8)
     return dict(mb_w=mb_w, mb_h=mb_h, ws4=ws4.to(device), ws8=ws8.to(device),
-                cqp_off=cqp_off, bypass=bypass, order=order)
+                cqp_off=cqp_off, bypass=bypass, order=order, field=field)
 
 
 def _mc_pred(abi: dict, dpb_y, dpb_c, mb_w: int, mb_h: int):
     """Inter prediction planes (pred_y, pred_cb, pred_cr) [B, ...] int32:
     K3/K4 (mc_luma, mc_chroma) predict each list as uint8, and
-    mc_combine weights and averages the lists in int32."""
+    mc_combine weights and averages the lists in int32.  Pictures without
+    `cvoff` (frames) give K4 a zero table."""
     a = resolve_weights(abi)
+    cvoff = a.get("cvoff")
+    if cvoff is None:
+        cvoff = torch.zeros(dpb_c.shape[:2], dtype=torch.int32,
+                            device=dpb_c.device)
     return mc_combine(mc_luma(dpb_y, a["mv"], a["refslot"], mb_w, mb_h),
-                      mc_chroma(dpb_c, a["mv"], a["refslot"], mb_w, mb_h),
+                      mc_chroma(dpb_c, a["mv"], a["refslot"], cvoff, mb_w,
+                                mb_h),
                       a["refslot"], a["wp"], a["logwd"], mb_w, mb_h)
 
 
 def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
                            mb_h: int, ws4, ws8, cqp_off, inter: bool,
-                           bypass: bool = False, order: str = "phase"):
-    """[B] frames: ABI tensors [B, n, ...] + DPBs [B, S, ...] -> (y, cb,
+                           bypass: bool = False, order: str = "phase",
+                           field: bool = False):
+    """[B] pictures: ABI tensors [B, n, ...] + DPBs [B, S, ...] -> (y, cb,
     cr) uint8 [B, H, W] / [B, H/2, W/2].  inter: whether any MB of the
     batch is inter (else MC is skipped).  order: "phase" runs the
     knight-move wavefront kernels K1/K2, "raster" the raster-order kernels
-    K5/K6 (ORDERS)."""
+    K5/K6 (ORDERS).  field: the pictures are fields (deblock_tables)."""
     intra, deblock = ORDERS[order]
     res_y, res_cb, res_cr = residual_planes(abi_b, mb_w, mb_h, ws4, ws8,
                                             cqp_off, bypass=bypass)
@@ -212,7 +243,7 @@ def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
                 torch.where(inter_c, torch.clamp(pred_cr + res_cr, 0, 255),
                             0))
     y, cb, cr = intra(abi_b, res_y, res_cb, res_cr, *init, mb_w, mb_h)
-    tables = deblock_tables(abi_b, mb_w, mb_h, cqp_off)
+    tables = deblock_tables(abi_b, mb_w, mb_h, cqp_off, field)
     return deblock(y, cb, cr, tables, mb_w, mb_h)
 
 
@@ -260,10 +291,12 @@ class DevicePipeline:
                                            self.n_slots, self.device)
 
     def decode_frame(self, abi):
-        """Host FrameABI -> (y, cb, cr) uint8 device planes (uncropped)."""
+        """Host FrameABI -> (y, cb, cr) uint8 device planes (uncropped; a
+        field's for a field picture)."""
         inter = bool((np.asarray(abi["kind"]) >= KIND_P).any())
-        return decode_frame_fn(upload_abi(abi, self.device), self.dpb_y,
-                               self.dpb_c, inter=inter, **self._kw)
+        return decode_frame_fn(upload_abi(abi, self.device, self.n_slots),
+                               self.dpb_y, self.dpb_c, inter=inter,
+                               **self._kw)
 
     def store_ref(self, slot: int, y, cb, cr) -> None:
         store_ref_fn(self.dpb_y, self.dpb_c, slot, y, cb, cr)

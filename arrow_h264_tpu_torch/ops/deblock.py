@@ -11,7 +11,9 @@ the deblock kernel (`ops/kernels/deblock_phase.py`, `csrc/deblock_phase.cu`).
 package's `deblock_planes`.
 
 All tensors carry a leading stream axis: ABI [B, n, ...], planes [B, H, W].
-Progressive (frame) pictures only.
+Frame pictures and field pictures (PAFF; not MBAFF): a field picture
+filters like a frame, and only its bS differs (`deblock_tables(field=
+True)`).
 """
 
 from __future__ import annotations
@@ -34,16 +36,22 @@ TABLE_KEYS = ("bs_v", "tc_v", "a_v", "b_v", "bs_h", "tc_h", "a_h", "b_h",
               "bs_c", "tc_c", "a_c", "b_c")
 
 
-def _mv_far(a, b):
-    """a, b [..., 2] qpel MVs -> bool."""
+def _mv_far(a, b, limit_y: int):
+    """a, b [..., 2] qpel MVs -> bool: they differ by 4 or more quarter
+    samples horizontally, or `limit_y` or more vertically."""
     return ((a[..., 0] - b[..., 0]).abs() >= 4) | \
-        ((a[..., 1] - b[..., 1]).abs() >= 4)
+        ((a[..., 1] - b[..., 1]).abs() >= limit_y)
 
 
-def _bs_pair(ip, iq, mb_edge: bool, nzp, nzq, refp, refq, mvp, mvq):
-    """Boundary strength (spec 8.7.2.1) of frame pictures, over [...].
+def _bs_pair(ip, iq, mb_edge: bool, nzp, nzq, refp, refq, mvp, mvq,
+             field: bool, horiz: bool):
+    """Boundary strength (spec 8.7.2.1), over [...].
 
-    refp/refq [..., 2] picture ids (-1 unused); mvp/mvq [..., 2, 2]."""
+    refp/refq [..., 2] picture ids (-1 unused); mvp/mvq [..., 2, 2].  In
+    a field picture the MVs are in quarter FIELD samples, so the vertical
+    limit of 4 quarter frame samples is 2 (the clause's NOTE), and intra
+    MBs give bS 3, not 4, on horizontal MB edges."""
+    limit_y = 2 if field else 4
     n_p = (refp >= 0).sum(-1)
     n_q = (refq >= 0).sum(-1)
     sets_eq = (torch.minimum(refp[..., 0], refp[..., 1]) ==
@@ -55,12 +63,12 @@ def _bs_pair(ip, iq, mb_edge: bool, nzp, nzq, refp, refq, mvp, mvq):
     q_use0 = (refq[..., 0] >= 0)[..., None]
     mv1p = torch.where(p_use0, mvp[..., 0, :], mvp[..., 1, :])
     mv1q = torch.where(q_use0, mvq[..., 0, :], mvq[..., 1, :])
-    far1 = _mv_far(mv1p, mv1q)
+    far1 = _mv_far(mv1p, mv1q, limit_y)
     # two MVs: two pairings
-    straight = _mv_far(mvp[..., 0, :], mvq[..., 0, :]) | \
-        _mv_far(mvp[..., 1, :], mvq[..., 1, :])
-    crossed = _mv_far(mvp[..., 0, :], mvq[..., 1, :]) | \
-        _mv_far(mvp[..., 1, :], mvq[..., 0, :])
+    straight = _mv_far(mvp[..., 0, :], mvq[..., 0, :], limit_y) | \
+        _mv_far(mvp[..., 1, :], mvq[..., 1, :], limit_y)
+    crossed = _mv_far(mvp[..., 0, :], mvq[..., 1, :], limit_y) | \
+        _mv_far(mvp[..., 1, :], mvq[..., 0, :], limit_y)
     same_ref_pair = refp[..., 0] == refp[..., 1]
     # distinct refs: match q's order to p's by picture id
     q_matches = refq[..., 0] == refp[..., 0]
@@ -69,11 +77,14 @@ def _bs_pair(ip, iq, mb_edge: bool, nzp, nzq, refp, refq, mvp, mvq):
     far = torch.where(n_p == 1, far1, (n_p == 2) & far2)
     mv_bs = ((n_p != n_q) | ~sets_eq | far).to(torch.int32)
     bs = torch.where(nzp | nzq, 2, mv_bs)
-    return torch.where(ip | iq, 4 if mb_edge else 3, bs)
+    return torch.where(ip | iq,
+                       4 if mb_edge and not (field and horiz) else 3, bs)
 
 
-def deblock_tables(abi, mb_w: int, mb_h: int, cqp_off=(0, 0)):
-    """Per-edge bS / tc0 / alpha / beta for the whole frame.
+def deblock_tables(abi, mb_w: int, mb_h: int, cqp_off=(0, 0),
+                   field: bool = False):
+    """Per-edge bS / tc0 / alpha / beta for the whole picture; field: the
+    picture is a field (_bs_pair).
 
     Returns a dict of int32 tensors (edge e, segment s, direction d = 0
     vertical / 1 horizontal, plane pl):
@@ -141,7 +152,7 @@ def deblock_tables(abi, mb_w: int, mb_h: int, cqp_off=(0, 0)):
                 mask = do_any & (~tr8 if e != 2 else True)
             bs = _bs_pair(p_i[..., None], is_intra[..., None], mb_edge,
                           p(nz), blk(nz, e), p(ref), blk(ref, e),
-                          p(mv), blk(mv, e))
+                          p(mv), blk(mv, e), field, horiz)
             bs = torch.where(mask[..., None], bs, 0)
             ia, ib = idx_ab(qp_p, qp)
             bs_l.append(bs)

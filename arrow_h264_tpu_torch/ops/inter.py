@@ -118,20 +118,27 @@ def mc_luma_plain(dpb_y, mv, refslot, mb_w: int, mb_h: int):
     return torch.where(slot >= 0, out, 0).to(torch.uint8)
 
 
-def mc_chroma_plain(dpb_c, mv, refslot, mb_w: int, mb_h: int):
+def mc_chroma_plain(dpb_c, mv, refslot, cvoff, mb_w: int, mb_h: int):
     """1/8-pel bilinear chroma prediction of both lists and planes.
 
-    dpb_c [B, S, 2, Hcp, Wcp] uint8.  Returns [B, 2 (list), 2 (plane),
-    H/2, W/2] uint8; samples of unused lists are 0."""
+    dpb_c [B, S, 2, Hcp, Wcp] uint8; cvoff [B, S] int32, the vertical
+    chroma offset of each slot in 1/8 samples (spec 8.4.1.4.1: -2 for a
+    top field reading a bottom field, +2 for the reverse, else 0), added
+    to the vertical MV before it splits into integer and fraction.
+    Returns [B, 2 (list), 2 (plane), H/2, W/2] uint8; samples of unused
+    lists are 0."""
     B, S, _, Hp, Wp = dpb_c.shape
     Hc, Wc = mb_h * 8, mb_w * 8
     dev = dpb_c.device
     slot, mvx, mvy = _lists(mv, refslot, mb_w, mb_h, 2)
+    slot_c = torch.clamp(slot, 0, S - 1)
+    mvy = mvy + torch.gather(cvoff, 1, slot_c.reshape(B, -1).long()) \
+        .reshape(slot.shape)
     xi = torch.arange(Wc, device=dev) + (mvx >> 3) + PADC
     yi = torch.arange(Hc, device=dev)[:, None] + (mvy >> 3) + PADC
     xf, yf = mvx & 7, mvy & 7
     base = (torch.arange(B, device=dev)[:, None, None, None] * S
-            + torch.clamp(slot, 0, S - 1)).long() * 2
+            + slot_c).long() * 2
     flat = dpb_c.reshape(-1)
     planes = []
     for pl in range(2):
@@ -189,10 +196,12 @@ def mc_combine(pred_y, pred_c, refslot, wp, logwd, mb_w: int, mb_h: int):
 def inter_predict(abi, dpb_y, dpb_c, mb_w: int, mb_h: int):
     """Prediction planes of every inter block with the plain gather MC.
 
-    abi: [B, n, ...] tensors with mv, refslot and the resolved weights
-    wp/logwd (models.pipeline.resolve_weights).  Returns (pred_y, pred_cb,
-    pred_cr) int32 [B, ...]; intra-MB regions are garbage."""
+    abi: [B, n, ...] tensors with mv, refslot, cvoff [B, S] and the
+    resolved weights wp/logwd (models.pipeline.resolve_weights).  Returns
+    (pred_y, pred_cb, pred_cr) int32 [B, ...]; intra-MB regions are
+    garbage."""
     return mc_combine(
         mc_luma_plain(dpb_y, abi["mv"], abi["refslot"], mb_w, mb_h),
-        mc_chroma_plain(dpb_c, abi["mv"], abi["refslot"], mb_w, mb_h),
+        mc_chroma_plain(dpb_c, abi["mv"], abi["refslot"], abi["cvoff"],
+                        mb_w, mb_h),
         abi["refslot"], abi["wp"], abi["logwd"], mb_w, mb_h)

@@ -11,6 +11,10 @@ runs while this round's device work is queued.
 Per-stream error isolation: a stream that raises during parse, ABI pack
 or commit is recorded in `BatchDecoder.errors` and leaves the rounds; the
 other streams keep decoding, and their frames stay exact.
+
+Field (PAFF) streams decode in lockstep like frames, a field a round:
+their lanes ship each picture's per-slot chroma offsets (`cvoff`), and
+field and frame streams cannot share a batch (`stream_params`).
 """
 
 from __future__ import annotations
@@ -171,13 +175,14 @@ class BatchDecoder:
                 if params != self._params:
                     raise ValueError(
                         f"lane {i}: stream parameters (resolution, scaling "
-                        "lists, chroma QP offsets, bypass) differ from the "
-                        "batch's; lockstep streams must share them")
+                        "lists, chroma QP offsets, bypass, field coding) "
+                        "differ from the batch's; lockstep streams must "
+                        "share them")
 
             t0 = time.perf_counter()
             inter = _inter(abis.values())
             batch = upload_batch([abis.get(i, self._dummy) for i in range(B)],
-                                 self.device)
+                                 self.device, self.n_slots)
             yb, cbb, crb = decode_frames_batch_fn(
                 batch, self._dpb_y, self._dpb_c, inter=inter, **self._kw)
             self.rounds += 1
@@ -265,5 +270,6 @@ def decode_batch_lockstep(abis: list[dict], dpbs: list[tuple], **kw):
     Returns (y, cb, cr) uint8 [B, H, W] / [B, H/2, W/2]."""
     dpb_y = torch.stack([d[0] for d in dpbs])
     dpb_c = torch.stack([d[1] for d in dpbs])
-    return decode_frames_batch_fn(upload_batch(abis, dpb_y.device), dpb_y,
-                                  dpb_c, inter=_inter(abis), **kw)
+    return decode_frames_batch_fn(
+        upload_batch(abis, dpb_y.device, dpb_y.shape[1]), dpb_y, dpb_c,
+        inter=_inter(abis), **kw)

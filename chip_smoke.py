@@ -25,7 +25,10 @@ Phases (each prints a line; any failure exits non-zero):
               of its own: ~330 MB of DPB, far beyond the 50 MB L2), also
               with every cell at one quarter-sample position and with
               one MV and slot for every cell of a list (reads that share
-              sectors); all exact and timed
+              sectors); all exact and timed.  K4 takes each slot's
+              cross-parity chroma offset (cvoff): zeros as frames pass
+              it, and random -2, 0 or +2 a slot at B = 1 and B = 8 (the
+              fields phase's part (a))
   6. decode   arrow_h264_tpu_torch.api.Decoder(device="cuda") decodes
               tests/data/smoke_1080p_high.264 twice, with order="phase"
               (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
@@ -47,6 +50,16 @@ Phases (each prints a line; any failure exits non-zero):
               process the single-stream Decoder over the four streams one
               after another, with the lanes' summed host_parse_s,
               device_dispatch_s and emit_sync_s
+  8. fields   the committed 1080i PAFF streams (FIELD_STREAMS,
+              tests/data/field_1080i_s0/s1.264: 120 x 34 MB fields, 4
+              and 3 frames, made by tools/field_smoke.py): (b) each
+              alone through Decoder(device="cuda") with each order, MD5s
+              of the woven frames equal to the libavcodec golden, the
+              order's intra and deblock kernels launched once a field and
+              K3/K4 once a P or B field; (c) BatchDecoder(4) over lanes
+              that cycle the two, with each order, MD5s per lane and one
+              launch a round (K3/K4 one a round with an inter lane); (d)
+              frames/s of both, log lines `[fields]`
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -66,9 +79,13 @@ single-stream decode of the 6-frame smoke stream, whose count is
 it puts on the card per wrapper call.  K1, K2, K5 and K6 also get `ms_b4`
 and `bound_ms_b4`: the same for four 1080p frames in one launch.  K3 and
 K4 also get `ms_b8` and `bound_ms_b8` (eight 1080p streams in one launch)
-and `ms_cold` (L2 flushed before each launch).  The other MC figures (launched back to
-back from the host without the device sleep, the smoke stream's
-pictures, the B = 8 variants) are log lines only.
+and `ms_cold` (L2 flushed before each launch); K4 also `ms_cvoff`,
+`bound_ms_cvoff`, `ms_b8_cvoff` and `bound_ms_b8_cvoff` (random
+cross-parity offsets).  `launches_fields` counts each kernel's launches
+in the fields phase's main path: BatchDecoder(4) over the 1080i lanes
+with the kernel's order (8 rounds, 6 with an inter lane).  The other MC
+figures (launched back to back from the host without the device sleep,
+the smoke stream's pictures, the B = 8 variants) are log lines only.
 
 A kernel's `ms` is the median over ROUNDS rounds of the mean of
 KERNEL_REPS launches, timed with CUDA events.  Each round is enqueued
@@ -96,7 +113,9 @@ REPO = Path(__file__).resolve().parent
 STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
 BATCH_STREAMS = [STREAM] + [STREAM.parent / f"batch_1080p_s{i}.264"
                             for i in (1, 2, 3)]
+FIELD_STREAMS = [STREAM.parent / f"field_1080i_s{i}.264" for i in (0, 1)]
 BATCH_LANES = 8                # lanes of the exactness runs
+FIELD_LANES = 4                # lanes of the 1080i batch runs
 BATCH_WIDE = 32                # lanes of the wide timing run
 MB_W, MB_H = 120, 68          # 1920x1088 coded
 SEED = 0
@@ -218,14 +237,16 @@ def deblock_need(tables, planes) -> tuple[float, float]:
     return nbytes(*tables.values()) + 2 * frac * nbytes(*planes), 40 * lines
 
 
-def mc_need(mv, rs, out) -> tuple[float, float]:
-    """Bytes and operations of MC: MVs and slots read once, at least one
-    reference byte per predicted sample and list, the prediction written
-    once; ~12 ops per predicted sample and list (the quarter-sample
-    average of two half-sample planes and its addressing)."""
+def mc_need(out, mv, rs, *tables) -> tuple[float, float]:
+    """Bytes and operations of MC: MVs, slots and `tables` (K4's cvoff)
+    read once, at least one reference byte per predicted sample and list,
+    the prediction written once; ~12 ops per predicted sample and list
+    (the quarter-sample average of two half-sample planes and its
+    addressing)."""
     used = int((rs >= 0).sum())                 # (4x4 block, list) pairs
     per_pair = out.numel() // rs.numel()        # samples of one pair
-    return nbytes(mv, rs, out) + used * per_pair, 12 * used * per_pair
+    return nbytes(mv, rs, out, *tables) + used * per_pair, \
+        12 * used * per_pair
 
 
 def stream_mc_inputs(data: bytes, dev) -> dict:
@@ -396,6 +417,101 @@ def batch_phase(paths: dict, smi: str) -> dict:
     log("batch", f"single-stream Decoder over the {len(data)} streams: "
         f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} frames/s; "
         f"summed {sums}; on {smi}")
+    return launches
+
+
+def fields_phase(paths: dict, smi: str) -> dict:
+    """The fields phase (module docstring), parts (b)-(d); returns {order:
+    LAUNCHES of its main path's run, BatchDecoder(FIELD_LANES) over the
+    1080i streams with that order}."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.ops import kernels
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    data = [p.read_bytes() for p in FIELD_STREAMS]
+    meta = [json.loads(p.with_suffix(".json").read_text())
+            for p in FIELD_STREAMS]
+
+    def want(order, fields, inter_fields):
+        intra, deblock, *mc = paths[order]
+        w = dict.fromkeys(kernels.LAUNCHES, 0)
+        w.update({intra: fields, deblock: fields,
+                  **dict.fromkeys(mc, inter_fields)})
+        return w
+
+    def decode(order, d):
+        dec = Decoder(device="cuda", order=order)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        md5 = [hashlib.md5(f.planar()).hexdigest()
+               for f in dec.decode_annexb(d)]
+        torch.cuda.synchronize()
+        return dec, md5, time.perf_counter() - t
+
+    # (b) each stream alone, with each order
+    for order in paths:
+        frames, wall = 0, 0.0
+        for p, d, m in zip(FIELD_STREAMS, data, meta):
+            decode(order, d)                     # warm-up: first-call costs
+            kernels.reset_launches()
+            dec, md5, wall_s = decode(order, d)
+            got = dict(kernels.LAUNCHES)
+            if md5 != m["md5"]:
+                bad = [i for i, (a, b) in enumerate(zip(md5, m["md5"]))
+                       if a != b]
+                sys.exit(f"fields {p.name} {order}: {len(md5)} frames, "
+                         f"golden {len(m['md5'])}; MD5 mismatch at {bad}")
+            fields = 2 * len(m["structure"])
+            inter = 2 * sum(k != "I" for k in m["structure"])
+            if got != want(order, fields, inter) or \
+                    dec.stats.frames != fields:
+                sys.exit(f"fields {p.name} {order}: launches {got}, "
+                         f"expected {want(order, fields, inter)} (a field "
+                         f"picture each; K3/K4 for {inter} P/B fields)")
+            frames += len(md5)
+            wall += wall_s
+            log("fields", f"{p.name} order={order}: {len(md5)} frames "
+                f"({fields} fields) {m['width']}x{m['height']} MD5 == "
+                f"libavcodec golden; launches {got}; {wall_s:.4f} s; "
+                f"stats {dec.stats.as_dict()}")
+        log("fields", f"single-stream Decoder order={order} over the "
+            f"{len(data)} 1080i streams: {frames} frames in {wall:.4f} s, "
+            f"{frames / wall:.3f} frames/s ({2 * frames / wall:.3f} fields/"
+            f"s); on {smi}")
+
+    # (c), (d) lockstep lanes that cycle the streams, with each order
+    launches = {}
+    for order in paths:
+        datas = [data[i % len(data)] for i in range(FIELD_LANES)]
+        lanes = [meta[i % len(data)] for i in range(FIELD_LANES)]
+        for _ in range(2):                       # warm-up, then the run
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            with BatchDecoder(FIELD_LANES, device="cuda", order=order) as bd:
+                outs = bd.decode(datas)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches[order] = got = dict(kernels.LAUNCHES)
+        for i, (frames, m) in enumerate(zip(outs, lanes)):
+            if bd.errors[i] is not None:
+                sys.exit(f"fields batch {order}: lane {i} failed: "
+                         f"{bd.errors[i]!r}")
+            if [hashlib.md5(f.planar()).hexdigest() for f in frames] \
+                    != m["md5"]:
+                sys.exit(f"fields batch {order}: lane {i} MD5s differ from "
+                         "the golden")
+        rounds = max(2 * len(m["structure"]) for m in lanes)
+        inter = rounds - 2                      # all but the I pair
+        if (bd.rounds, bd.inter_rounds) != (rounds, inter) or \
+                got != want(order, bd.rounds, bd.inter_rounds):
+            sys.exit(f"fields batch {order}: launches {got} in {bd.rounds} "
+                     f"rounds ({bd.inter_rounds} inter), expected "
+                     f"{want(order, rounds, inter)}")
+        n = sum(len(f) for f in outs)
+        log("fields", f"BatchDecoder({FIELD_LANES}) order={order}: every lane "
+            f"MD5 == golden; launches {got} in {bd.rounds} rounds "
+            f"({bd.inter_rounds} inter); {n} frames in {wall:.4f} s, "
+            f"{n / wall:.3f} frames/s of the batch; on {smi}")
     return launches
 
 
@@ -594,11 +710,28 @@ def main() -> None:
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
     # wild MVs (+-512 quarter samples); on synthetic_abi_p also cold (L2
-    # flushed before each launch) and unqueued
+    # flushed before each launch) and unqueued.  K4 takes each slot's
+    # cross-parity chroma offset: zeros, as frames pass it, except in the
+    # cvoff cases (random -2, 0 or +2 a slot, as field pictures pass it)
     mc_kernels = (("mc_luma", mc_luma, mc_luma_plain, "K3", "460"),
                   ("mc_chroma", mc_chroma, mc_chroma_plain, "K4", "505"))
     n_slots = 4
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def mc_args(key, dpbs, mv, rs, cvoff=None):
+        """The arguments of K3 (key "mc_luma") or K4 but the grid size."""
+        if key == "mc_luma":
+            return dpbs[0], mv, rs
+        if cvoff is None:
+            cvoff = torch.zeros(dpbs[1].shape[:2], dtype=torch.int32,
+                                device=dev)
+        return dpbs[1], mv, rs, cvoff
+
+    gc = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def random_cvoff(B):
+        return torch.randint(-1, 2, (B, n_slots), generator=gc, device=dev,
+                             dtype=torch.int32) * 2
 
     def random_dpbs(B):
         """[B, n_slots, ...] luma and chroma DPBs, every slot of every
@@ -613,7 +746,7 @@ def main() -> None:
                     for shp in ((H, W), (H // 2, W // 2), (H // 2, W // 2))))
         return dpbs
 
-    dpb_y, dpb_c = random_dpbs(1)
+    dpbs = random_dpbs(1)
     abi_h, _ = synthetic_batch(MB_W, MB_H, SEED + 2, dev, inter=True,
                                n_slots=n_slots, bi_frac=0.3)
     rng = np.random.default_rng(SEED + 3)
@@ -625,40 +758,51 @@ def main() -> None:
                                             abi_h["mv"]))):
         mv = torch.from_numpy(np.ascontiguousarray(mv_h)).to(dev)[None]
         for key, kern, plain_fn, kid, line in mc_kernels:
-            dpb = dpb_y if key == "mc_luma" else dpb_c
-            got = kern(dpb, mv, rs, MB_W, MB_H)
+            args = mc_args(key, dpbs, mv, rs)
+            got = kern(*args, MB_W, MB_H)
             torch.cuda.synchronize()
-            err = compare(key, got, plain_fn(dpb, mv, rs, MB_W, MB_H))
-            call = partial(kern, dpb, mv, rs, MB_W, MB_H)
+            err = compare(key, got, plain_fn(*args, MB_W, MB_H))
+            call = partial(kern, *args, MB_W, MB_H)
             ms = kernel_ms(call)
-            plain = cuda_ms(lambda: plain_fn(dpb, mv, rs, MB_W, MB_H),
+            plain = cuda_ms(lambda: plain_fn(*args, MB_W, MB_H),
                             KERNEL_REPS)
             record(key, f"{key} ({kid})", "arrow_h264_tpu_torch/csrc/mc.cu",
                    f"arrow_h264_tpu/ops/pallas/mc_kernel.py:{line}", err, ms,
-                   plain, mc_need(mv, rs, got), note, call)
+                   plain, mc_need(got, *args[1:]), note, call)
             if note == "synthetic_abi_p":
                 r = results[key]
                 r.update(ms_cold=cold_ms(call, KERNEL_REPS))
                 log("mc", f"{r['name']}: cold {r['ms_cold']:.4f} ms, "
                     f"unqueued {cuda_ms(call, KERNEL_REPS, ROUNDS):.4f} ms, "
                     f"{got.dtype}")
-    del dpb_y, dpb_c
 
-    def mc_case(note, dpbs, mv, rs):
-        """K3 and K4 on one input: equal to the plain versions; logs the
-        kernel ms and the bound; returns {key: (ms, bound_ms)}."""
+    def mc_case(note, dpbs, mv, rs, cvoff=None, keys=("mc_luma",
+                                                      "mc_chroma")):
+        """K3 and K4 (`keys` of them) on one input: equal to the plain
+        versions; logs the kernel ms and the bound; returns {key: (ms,
+        bound_ms)}."""
         out = {}
         for key, kern, plain_fn, kid, _ in mc_kernels:
-            dpb = dpbs[key != "mc_luma"]
-            got = kern(dpb, mv, rs, MB_W, MB_H)
+            if key not in keys:
+                continue
+            args = mc_args(key, dpbs, mv, rs, cvoff)
+            got = kern(*args, MB_W, MB_H)
             torch.cuda.synchronize()
-            compare(f"{key} {note}", got, plain_fn(dpb, mv, rs, MB_W, MB_H))
-            out[key] = (kernel_ms(partial(kern, dpb, mv, rs, MB_W, MB_H)),
-                        bound(*mc_need(mv, rs, got))[0])
-            log("mc", f"{key} ({kid}) {note} ({nbytes(dpb) / 1e6:.1f} MB "
-                f"of DPB): equal, kernel {out[key][0]:.4f} ms, bound "
+            compare(f"{key} {note}", got, plain_fn(*args, MB_W, MB_H))
+            out[key] = (kernel_ms(partial(kern, *args, MB_W, MB_H)),
+                        bound(*mc_need(got, *args[1:]))[0])
+            log("mc", f"{key} ({kid}) {note} ({nbytes(args[0]) / 1e6:.1f} "
+                f"MB of DPB): equal, kernel {out[key][0]:.4f} ms, bound "
                 f"{out[key][1]:.4f} ms")
         return out
+
+    # K4 with cross-parity offsets on the synthetic_abi_p input (the
+    # fields phase's part (a))
+    mv = torch.from_numpy(np.ascontiguousarray(abi_h["mv"])).to(dev)[None]
+    ms, bound_ms = mc_case("cvoff", dpbs, mv, rs, random_cvoff(1),
+                           ("mc_chroma",))["mc_chroma"]
+    results["mc_chroma"].update(ms_cvoff=ms, bound_ms_cvoff=bound_ms)
+    del dpbs
 
     # K3 + K4 on the smoke stream's own pictures
     for kind, (*dpbs, mv, rs) in stream_mc_inputs(STREAM.read_bytes(),
@@ -666,10 +810,11 @@ def main() -> None:
         mc_case(f"smoke stream {kind} picture", dpbs, mv, rs)
 
     # K3 + K4 at B = 8: eight synthetic_abi_p streams in one launch, each
-    # over 4 reference pictures of its own; then every cell at one
-    # quarter-sample (and 1/8-sample) position, each with its own
-    # integer MV and slot; then one MV and slot for all cells of a list,
-    # so that neighbouring cells read neighbouring samples
+    # over 4 reference pictures of its own; K4 also with cross-parity
+    # offsets; then every cell at one quarter-sample (and 1/8-sample)
+    # position, each with its own integer MV and slot; then one MV and
+    # slot for all cells of a list, so that neighbouring cells read
+    # neighbouring samples
     dpbs = random_dpbs(B8)
     abis = [synthetic_batch(MB_W, MB_H, SEED + 20 + b, dev, inter=True,
                             n_slots=n_slots, bi_frac=0.3)[1]
@@ -678,6 +823,9 @@ def main() -> None:
     del abis
     for key, (ms, bound_ms) in mc_case(f"B={B8}", dpbs, mv, rs).items():
         results[key].update(ms_b8=ms, bound_ms_b8=bound_ms)
+    ms, bound_ms = mc_case(f"B={B8} cvoff", dpbs, mv, rs, random_cvoff(B8),
+                           ("mc_chroma",))["mc_chroma"]
+    results["mc_chroma"].update(ms_b8_cvoff=ms, bound_ms_b8_cvoff=bound_ms)
     frac = torch.tensor([5, 3], dtype=torch.int32, device=dev)
     mc_case(f"B={B8} one position", dpbs, (mv & ~7) | frac, rs)
     one_slot = torch.arange(2, dtype=torch.int32, device=dev)
@@ -736,6 +884,7 @@ def main() -> None:
             f"{dec.stats.as_dict()}")
 
     batch_launches = batch_phase(paths, smi)
+    field_launches = fields_phase(paths, smi)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):
@@ -744,6 +893,7 @@ def main() -> None:
         order = "raster" if key.endswith("_raster") else "phase"
         r["launches"] = batch_launches[order][key]
         r["launches_decode"] = launches[order][key]
+        r["launches_fields"] = field_launches[order][key]
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

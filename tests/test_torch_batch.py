@@ -11,7 +11,6 @@ import json
 import os
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +23,7 @@ from arrow_h264_tpu_torch.api import PendingFrame
 from arrow_h264_tpu_torch.ops.inter import halfpel_planes, pad_chroma
 from arrow_h264_tpu_torch.models.pipeline import (
     decode_frame_fn, decode_frames_batch_fn, dpb_alloc, store_ref_fn,
-    store_refs_fn, stream_params, upload_abi, upload_batch,
+    store_refs_fn, upload_abi, upload_batch,
 )
 from arrow_h264_tpu_torch.parallel.batch import (
     BatchDecoder, decode_batch_lockstep,
@@ -315,18 +314,6 @@ def test_batch_decoder_device_is_explicit():
         BatchDecoder(2)
     with pytest.raises(ValueError, match="order 'bogus'"):
         BatchDecoder(2, device="cpu", order="bogus")
-
-
-def test_batch_decoder_field_sps_not_ported():
-    """A field (PAFF) stream raises NotImplementedError, as in Decoder."""
-    from tools import field_streams
-    with pytest.raises(NotImplementedError):
-        stream_params(SimpleNamespace(frame_mbs_only_flag=0),
-                      SimpleNamespace())
-    data = field_streams.make_field_pcm_stream()
-    with BatchDecoder(2, device="cpu") as bd, \
-            pytest.raises(NotImplementedError):
-        bd.decode([data, data])
 
 
 def test_batch_decoder_lanes_share_parameters(h264ref):

@@ -1,26 +1,27 @@
 """The port's slice as a whole: arrow_h264_tpu_torch.api.Decoder on the CPU
 decodes real streams byte-identically to the JAX package's Decoder and to
-the libavcodec golden; the committed 1080p smoke stream matches its
-committed golden hashes."""
+the libavcodec golden; the committed 1080p and 1080i streams match their
+committed golden hashes, and the 1080i ones are what tools/field_smoke.py
+makes."""
 
 import hashlib
 import json
 from pathlib import Path
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 import torch
 
 from arrow_h264_tpu_torch.api import Decoder
-from arrow_h264_tpu_torch.models.pipeline import DevicePipeline
 from tests.torch_ref import decode_jax, decode_port, encode
-from tools import streams
+from tools import field_smoke, streams
 
 DATA = Path(__file__).resolve().parent / "data"
-# the committed 1080p streams that chip_smoke.py decodes (tools/smoke_stream.py)
+# the committed 1080p (tools/smoke_stream.py) and 1080i PAFF
+# (tools/field_smoke.py) streams that chip_smoke.py decodes, and their
+# frame counts
 STREAMS_1080P = {"smoke_1080p_high": 6, "batch_1080p_s1": 6,
-                 "batch_1080p_s2": 5, "batch_1080p_s3": 4}
+                 "batch_1080p_s2": 5, "batch_1080p_s3": 4,
+                 "field_1080i_s0": 4, "field_1080i_s1": 3}
 
 
 @pytest.mark.parametrize("cfg", [1, 2, 4])
@@ -39,8 +40,9 @@ def test_decoder_matches_jax_and_golden(h264ref, tmp_path, cfg):
 
 @pytest.mark.parametrize("name", STREAMS_1080P)
 def test_smoke_stream_golden(h264ref, name):
-    """Each committed 1080p stream still decodes (libavcodec) to the
-    committed per-frame MD5s that chip_smoke.py checks the port against."""
+    """Each committed 1080p (1080i) stream still decodes (libavcodec) to
+    the committed per-frame MD5s that chip_smoke.py checks the port
+    against."""
     path = DATA / f"{name}.264"
     meta = json.loads(path.with_suffix(".json").read_text())
     golden, w, h = streams.golden_decode(str(path))
@@ -66,7 +68,12 @@ def test_decoder_order_checked_at_construction():
     assert Decoder(device="cpu", order="raster").order == "raster"
 
 
-def test_field_sps_not_ported():
-    sps = SimpleNamespace(frame_mbs_only_flag=0)
-    with pytest.raises(NotImplementedError):
-        DevicePipeline(sps, SimpleNamespace(), "cpu")
+
+@pytest.mark.parametrize("name", field_smoke.STREAMS)
+def test_field_smoke_streams_regenerate(name):
+    """tools/field_smoke.py makes the committed 1080i streams byte for
+    byte (their golden MD5s hold for what it writes)."""
+    structure, qp, seed = field_smoke.STREAMS[name]
+    assert field_smoke.make_field_smoke_stream(
+        field_smoke.HD_MB_W, field_smoke.HD_MAP_UNITS, structure, qp, seed,
+        crop_bottom=2) == (DATA / f"{name}.264").read_bytes()

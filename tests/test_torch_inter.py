@@ -1,7 +1,8 @@
 """Port inter prediction (arrow_h264_tpu_torch.ops.inter) vs the JAX
 package's ops.inter: half-pel planes, the reference store (through
 convert.py), the gather MC with random MVs (+-512 quarter samples,
-uni/bi, explicit weights) and the per-cell weight resolve."""
+uni/bi, explicit weights, the cross-parity chroma offsets of field
+pictures) and the per-cell weight resolve."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,7 +76,9 @@ def _dpbs_converted(pics):
 
 
 def _motion(case: str, seed: int):
-    """mv/refslot/wp/logwd for one MC case (host numpy)."""
+    """mv/refslot/wp/logwd/cvoff for one MC case (host numpy).  cvoff:
+    each slot's vertical chroma offset, -2, 0 or +2 in the "cvoff" case
+    (slots of the other field parity), else 0 (frames)."""
     rng = np.random.default_rng(seed)
     abi = synthetic_abi_p(MB_W, MB_H, seed=seed, n_slots=N_SLOTS,
                           intra_frac=0.1,
@@ -92,14 +95,18 @@ def _motion(case: str, seed: int):
         wp[..., 0] = rng.integers(-128, 128, wp[..., 0].shape)
         wp[..., 1] = rng.integers(-128, 128, wp[..., 1].shape)
         logwd = rng.integers(0, 8, (n, 2)).astype(np.int32)
+    cvoff = np.zeros(N_SLOTS, np.int32)
+    if case == "cvoff":
+        cvoff = np.array([-2, 2, 0], np.int32)[rng.permutation(N_SLOTS)]
     return {"mv": mv.astype(np.int32), "refslot": abi["refslot"],
-            "wp": wp, "logwd": logwd}
+            "wp": wp, "logwd": logwd, "cvoff": cvoff}
 
 
-@pytest.mark.parametrize("case", ["uni", "bi", "wild", "weighted"])
+@pytest.mark.parametrize("case", ["uni", "bi", "wild", "weighted", "cvoff"])
 def test_gather_mc(case):
     (jy, jc), (dy, dcb, dcr), (ty, tc) = _dpbs_converted(_pictures(3))
-    m = _motion(case, {"uni": 4, "bi": 5, "wild": 6, "weighted": 7}[case])
+    m = _motion(case, {"uni": 4, "bi": 5, "wild": 6, "weighted": 7,
+                       "cvoff": 8}[case])
     ja = {k: jnp.asarray(v) for k, v in m.items()}
     want_packed = ji.inter_predict_packed(ja, jy, jc, MB_W, MB_H)
     want_dense = ji.inter_predict(ja, dy, dcb, dcr, MB_W, MB_H)
@@ -119,10 +126,10 @@ def test_gather_mc(case):
     assert torch.equal(mc_luma(ty[None], ta["mv"], ta["refslot"], MB_W, MB_H),
                        ti.mc_luma_plain(ty[None], ta["mv"], ta["refslot"],
                                         MB_W, MB_H))
-    assert torch.equal(mc_chroma(tc[None], ta["mv"], ta["refslot"], MB_W,
-                                 MB_H),
+    assert torch.equal(mc_chroma(tc[None], ta["mv"], ta["refslot"],
+                                 ta["cvoff"], MB_W, MB_H),
                        ti.mc_chroma_plain(tc[None], ta["mv"], ta["refslot"],
-                                          MB_W, MB_H))
+                                          ta["cvoff"], MB_W, MB_H))
     assert LAUNCHES == before
 
 

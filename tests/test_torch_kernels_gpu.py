@@ -39,6 +39,8 @@ from arrow_h264_tpu_torch.ops.transforms import (
 pytestmark = pytest.mark.cuda
 
 SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
+# the committed 1080i PAFF streams (tools/field_smoke.py)
+FIELD_1080I = [SMOKE.parent / f"field_1080i_s{i}.264" for i in (0, 1)]
 # QCIF config-4 lanes of 3, 4, 5 and 3 frames (tools/smoke_stream.py)
 QCIF_LANES = [SMOKE.parent / f"batch_qcif_s{i}.264" for i in range(1, 5)]
 SIZES = [(7, 5), (22, 18)]            # ragged grid edges; CIF
@@ -287,16 +289,21 @@ def _mc_motion(mb_w, mb_h, B, mvs, seed, dev):
             torch.from_numpy(rs.astype(np.int32)).to(dev))
 
 
-def _mc_equal(dy, dc, mv, rs, mb_w, mb_h):
-    """K3 and K4 equal to their plain versions, uint8.  Each wrapper call
-    adds one to its LAUNCHES count; this does not see how many kernels the
-    call put on the card (chip_smoke.py counts those with torch.profiler)."""
-    for kern, plain, dpb in ((mc_luma, mc_luma_plain, dy),
-                             (mc_chroma, mc_chroma_plain, dc)):
+def _mc_equal(dy, dc, mv, rs, mb_w, mb_h, cvoff=None):
+    """K3 and K4 equal to their plain versions, uint8; K4 with the slots'
+    chroma offsets cvoff [B, S] (zeros, as frames pass, by default).
+    Each wrapper call adds one to its LAUNCHES count; this does not see
+    how many kernels the call put on the card (chip_smoke.py counts those
+    with torch.profiler)."""
+    if cvoff is None:
+        cvoff = torch.zeros(dc.shape[:2], dtype=torch.int32, device=dc.device)
+    for kern, plain, dpb, extra in ((mc_luma, mc_luma_plain, dy, ()),
+                                    (mc_chroma, mc_chroma_plain, dc,
+                                     (cvoff,))):
         n0 = kernels.LAUNCHES[kern.__name__]
-        got = kern(dpb, mv, rs, mb_w, mb_h)
+        got = kern(dpb, mv, rs, *extra, mb_w, mb_h)
         assert kernels.LAUNCHES[kern.__name__] == n0 + 1
-        want = plain(dpb, mv, rs, mb_w, mb_h)
+        want = plain(dpb, mv, rs, *extra, mb_w, mb_h)
         assert got.dtype == want.dtype == torch.uint8
         assert torch.equal(got, want), kern.__name__
 
@@ -309,6 +316,36 @@ def test_mc_kernels(dev, mb_w, mb_h, mvs, B):
     dy, dc = _mc_dpbs(mb_w, mb_h, B, seed, dev)
     mv, rs = _mc_motion(mb_w, mb_h, B, mvs, seed, dev)
     _mc_equal(dy, dc, mv, rs, mb_w, mb_h)
+
+
+@pytest.mark.parametrize("mb_w,mb_h", MC_SIZES)
+@pytest.mark.parametrize("mvs", ["synthetic", "wild", "edge"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_mc_chroma_cvoff(dev, mb_w, mb_h, mvs, B):
+    """K4 with a cross-parity chroma offset of -2, 0 or +2 per lane and
+    slot, as field pictures pass it (wild and edge slots >= S clamp, and
+    take the offset of slot S - 1)."""
+    seed = 7 + mb_w + 3 * B
+    dy, dc = _mc_dpbs(mb_w, mb_h, B, seed, dev)
+    mv, rs = _mc_motion(mb_w, mb_h, B, mvs, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cvoff = (torch.randint(-1, 2, (B, MC_SLOTS), generator=g, device=dev,
+                           dtype=torch.int32) * 2)
+    _mc_equal(dy, dc, mv, rs, mb_w, mb_h, cvoff)
+
+
+def test_mc_chroma_refuses_bad_cvoff(dev):
+    """cvoff must be int32 [B, S] on the DPB's device: else K4 raises,
+    with no launch."""
+    dy, dc = _mc_dpbs(7, 5, 1, 1, dev)
+    mv, rs = _mc_motion(7, 5, 1, "synthetic", 1, dev)
+    before = dict(kernels.LAUNCHES)
+    good = torch.zeros((1, MC_SLOTS), dtype=torch.int32, device=dev)
+    for bad, err in ((good[:, :-1], ValueError), (good.long(), TypeError),
+                     (good.cpu(), ValueError)):
+        with pytest.raises(err, match="cvoff"):
+            mc_chroma(dc, mv, rs, bad, 7, 5)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("pos", range(64))
@@ -336,13 +373,15 @@ def test_mc_wrappers_refuse_unaligned(dev):
         flat = torch.empty(dpb.numel() + 1, dtype=torch.uint8, device=dev)
         view = flat[1:].view(dpb.shape)
         assert view.is_contiguous() and view.data_ptr() % 4
+        extra = () if kern is mc_luma else (
+            torch.zeros((1, MC_SLOTS), dtype=torch.int32, device=dev),)
         with pytest.raises(ValueError, match="aligned"):
-            kern(view, mv, rs, 7, 5)
+            kern(view, mv, rs, *extra, 7, 5)
         words = torch.empty(mv.numel() + 1, dtype=torch.int32, device=dev)
         mv_view = words[1:].view(mv.shape)
         assert mv_view.data_ptr() % 8
         with pytest.raises(ValueError, match="aligned"):
-            kern(dpb, mv_view, rs, 7, 5)
+            kern(dpb, mv_view, rs, *extra, 7, 5)
     assert kernels.LAUNCHES == before
 
 
@@ -369,6 +408,26 @@ def test_decoder_cuda_smoke_stream(dev, order, path):
     assert md5 == meta["md5"]
     assert {k for k, v in kernels.LAUNCHES.items() if v} == path, \
         kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("stream", FIELD_1080I, ids=lambda p: p.stem)
+def test_decoder_cuda_field_stream(dev, stream, order):
+    """A committed 1080i PAFF stream on the card: every woven frame equal
+    to its libavcodec MD5; the order's intra and deblock kernels launched
+    once a field, K3/K4 once a P or B field (all but the I pair)."""
+    from arrow_h264_tpu_torch.api import Decoder
+    meta = json.loads(stream.with_suffix(".json").read_text())
+    kernels.reset_launches()
+    md5 = [hashlib.md5(f.planar()).hexdigest()
+           for f in Decoder(device=dev, order=order).decode_annexb(
+               stream.read_bytes())]
+    assert md5 == meta["md5"]
+    fields = 2 * len(md5)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(ORDERS[order], fields))
+    want.update(mc_luma=fields - 2, mc_chroma=fields - 2)
+    assert kernels.LAUNCHES == want
 
 
 @pytest.mark.parametrize("order", ORDERS)

@@ -86,8 +86,10 @@ def test_mc_plain_matches_pallas(case):
     mv, refslot = _motion(case)
     ty, tc = convert.dpb_from_jax(np.asarray(jy), np.asarray(jc), MB_W, MB_H)
     tmv, trs = (torch.from_numpy(v)[None] for v in (mv, refslot))
+    # the TPU kernel has no cross-parity chroma offset: frames' zeros
+    cvoff = torch.zeros((1, N_SLOTS), dtype=torch.int32)
     got_y = mc_luma_plain(ty[None], tmv, trs, MB_W, MB_H)[0]
-    got_c = mc_chroma_plain(tc[None], tmv, trs, MB_W, MB_H)[0]
+    got_c = mc_chroma_plain(tc[None], tmv, trs, cvoff, MB_W, MB_H)[0]
     assert got_y.dtype == got_c.dtype == torch.uint8
     abi = {"mv": jnp.asarray(mv), "refslot": jnp.asarray(refslot)}
     lists = [lst for lst in (0, 1) if (refslot[..., lst] >= 0).any()]
@@ -116,6 +118,6 @@ def test_mc_plain_matches_pallas(case):
     # the wrappers on CPU tensors are these plain versions, with no launch
     before = dict(LAUNCHES)
     assert torch.equal(mc_luma(ty[None], tmv, trs, MB_W, MB_H), got_y[None])
-    assert torch.equal(mc_chroma(tc[None], tmv, trs, MB_W, MB_H),
+    assert torch.equal(mc_chroma(tc[None], tmv, trs, cvoff, MB_W, MB_H),
                        got_c[None])
     assert LAUNCHES == before
