@@ -101,11 +101,14 @@ class BatchDecoder:
 
     # ---- batched device state --------------------------------------------
 
-    def _init_device(self, params: tuple, sps) -> None:
+    def _init_device(self, params: tuple, n_slots: int) -> None:
+        """Device state for lanes of stream_params `params`, each with a
+        DPB of n_slots slots (the most that a lane of the first round
+        needs)."""
         self._params = params
         self._kw = decode_consts(params, self.device, self.order)
         mb_w, mb_h = params[:2]
-        self.n_slots = dpb_slots(sps)
+        self.n_slots = n_slots
         B = self.n_streams
         y, c = dpb_alloc(mb_w, mb_h, B * self.n_slots, self.device)
         self._dpb_y = y.view((B, self.n_slots) + y.shape[1:])
@@ -164,20 +167,28 @@ class BatchDecoder:
             live = [i for i in range(B) if pending[i] is not None]
             abis = {i: abi for i, abi in zip(live, self._pool.map(pack, live))
                     if abi is not None}
-            live = [i for i in live if i in abis]
-            if not live:
-                break
-            for i in live:
+            if abis and self._params is None:
+                pic = pending[next(iter(abis))][0]
+                self._init_device(
+                    stream_params(pic.sps, pic.pps),
+                    max(dpb_slots(pending[i][0].sps) for i in abis))
+            for i in list(abis):
                 pic = pending[i][0]
-                params = stream_params(pic.sps, pic.pps)
-                if self._params is None:
-                    self._init_device(params, pic.sps)
-                if params != self._params:
+                if stream_params(pic.sps, pic.pps) != self._params:
                     raise ValueError(
                         f"lane {i}: stream parameters (resolution, scaling "
                         "lists, chroma QP offsets, bypass, field coding) "
                         "differ from the batch's; lockstep streams must "
                         "share them")
+                if dpb_slots(pic.sps) > self.n_slots:
+                    fail(i, ValueError(
+                        f"lane {i}: {dpb_slots(pic.sps)} DPB slots, more "
+                        f"than the {self.n_slots} of the batch's first "
+                        "round"))
+                    del abis[i]
+            live = [i for i in live if i in abis]
+            if not live:
+                break
 
             t0 = time.perf_counter()
             inter = _inter(abis.values())

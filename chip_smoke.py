@@ -60,6 +60,26 @@ Phases (each prints a line; any failure exits non-zero):
               that cycle the two, with each order, MD5s per lane and one
               launch a round (K3/K4 one a round with an inter lane); (d)
               frames/s of both, log lines `[fields]`
+  9. features  the committed feature streams (FEATURE_STREAMS,
+              tests/data/feat_*.264, made by tools/feature_streams.py):
+              lossless bypass (CABAC with I_PCM at QP 0, CAVLC DPCM at
+              164x132), CIF configs 2-4, widths 512 and 976, the seven
+              FMO map types, ASO, FMO CAVLC pairs at 8 x 6 and 120 x 68
+              MBs, concealment of a dropped slice at 64x64 and 1080p,
+              dense per-cell weights (18 weighted slices) and a
+              table-weighted lane of the same geometry.  (a) each alone
+              through Decoder(device="cuda") with each order: MD5s equal
+              to the JSON's expected output, the order's intra and
+              deblock kernels launched once a picture and K3/K4 once a
+              picture with inter MBs (none on the all-I streams),
+              `concealed` as in the JSON; (b) BatchDecoder over the lanes
+              of FEATURE_BATCHES with each order: MD5s per lane, the
+              rounds and one launch a round; (c) the CLI as a subprocess,
+              `python -m arrow_h264_tpu_torch decode` of the smoke stream
+              with each order (the YUV file's frames equal the golden
+              MD5s, exit 0), `info` (exit 0) and `decode --ref` against a
+              reference with one byte flipped (exit 1); (d) frames/s of
+              every stream and batch, log lines `[features]`
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 
@@ -83,7 +103,9 @@ and `ms_cold` (L2 flushed before each launch); K4 also `ms_cvoff`,
 `bound_ms_cvoff`, `ms_b8_cvoff` and `bound_ms_b8_cvoff` (random
 cross-parity offsets).  `launches_fields` counts each kernel's launches
 in the fields phase's main path: BatchDecoder(4) over the 1080i lanes
-with the kernel's order (8 rounds, 6 with an inter lane).  The other MC
+with the kernel's order (8 rounds, 6 with an inter lane);
+`launches_features` in the features phase's: every feature stream through
+Decoder with the kernel's order, one after another.  The other MC
 figures (launched back to back from the host without the device sleep,
 the smoke stream's pictures, the B = 8 variants) are log lines only.
 
@@ -102,6 +124,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -114,6 +137,28 @@ STREAM = REPO / "tests" / "data" / "smoke_1080p_high.264"
 BATCH_STREAMS = [STREAM] + [STREAM.parent / f"batch_1080p_s{i}.264"
                             for i in (1, 2, 3)]
 FIELD_STREAMS = [STREAM.parent / f"field_1080i_s{i}.264" for i in (0, 1)]
+# the committed feature streams (tools/feature_streams.py) and the lanes
+# of the features phase's BatchDecoder runs: name -> (lanes, rounds,
+# rounds with an inter lane)
+FEATURE_STREAMS = (
+    "feat_lossless_qcif", "feat_lossless_164x132", "feat_cif_cfg2",
+    "feat_cif_cfg3", "feat_cif_cfg4", "feat_w512", "feat_w976",
+    "feat_w512_high", "feat_fmo_boxout_t3", "feat_fmo_dispersed_t1",
+    "feat_fmo_explicit_t6", "feat_fmo_fg_bg_t2", "feat_fmo_interleave_t0",
+    "feat_fmo_raster_t4", "feat_fmo_wipe_t5", "feat_aso",
+    "feat_fmo_cavlc_interleave", "feat_fmo_cavlc_explicit",
+    "feat_fmo1080_interleave", "feat_fmo1080_explicit", "feat_conceal64",
+    "feat_conceal1080", "feat_qcif_cfg2", "feat_wp18", "feat_wp_table")
+FEATURE_BATCHES = {
+    "dense weights": (("feat_wp18", "feat_wp18"), 3, 2),
+    "dense beside table weights": (("feat_wp18", "feat_wp_table"), 3, 2),
+    "CIF configs 2-4": (("feat_cif_cfg2", "feat_cif_cfg3", "feat_cif_cfg4"),
+                        4, 3),
+    "1080p FMO": (("feat_fmo1080_interleave", "feat_fmo1080_explicit"),
+                  3, 2),
+    "lossless QCIF": (("feat_lossless_qcif", "feat_lossless_qcif"), 5, 4),
+    "DPB of 2 and 5 slots": (("feat_qcif_cfg2", "batch_qcif_s3"), 5, 4),
+}
 BATCH_LANES = 8                # lanes of the exactness runs
 FIELD_LANES = 4                # lanes of the 1080i batch runs
 BATCH_WIDE = 32                # lanes of the wide timing run
@@ -515,6 +560,139 @@ def fields_phase(paths: dict, smi: str) -> dict:
     return launches
 
 
+def features_phase(paths: dict, smi: str) -> dict:
+    """The features phase (module docstring), parts (a)-(d); returns
+    {order: LAUNCHES of its main path's run, every feature stream through
+    Decoder with that order}."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.ops import kernels
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    data = STREAM.parent
+    meta = {n: json.loads((data / f"{n}.json").read_text())
+            for n in FEATURE_STREAMS}
+
+    def want(order, pictures, mc_pictures):
+        intra, deblock, *mc = paths[order]
+        w = dict.fromkeys(kernels.LAUNCHES, 0)
+        w.update({intra: pictures, deblock: pictures,
+                  **dict.fromkeys(mc, mc_pictures)})
+        return w
+
+    # (a), (d) each stream alone, with each order
+    launches = {}
+    for order in paths:
+        total = dict.fromkeys(kernels.LAUNCHES, 0)
+        for name, m in meta.items():
+            stream = (data / f"{name}.264").read_bytes()
+            dec = Decoder(device="cuda", order=order,
+                          conceal="concealed" in m)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            md5 = [hashlib.md5(f.planar()).hexdigest()
+                   for f in dec.decode_annexb(stream)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(kernels.LAUNCHES)
+            for k, v in got.items():
+                total[k] += v
+            if md5 != m["md5"]:
+                bad = [i for i, (a, b) in enumerate(zip(md5, m["md5"]))
+                       if a != b]
+                sys.exit(f"features {name} {order}: {len(md5)} frames, "
+                         f"expected {len(m['md5'])} ({m['expected']}); MD5 "
+                         f"mismatch at {bad}")
+            pictures = len(m["structure"])
+            if got != want(order, pictures, m["mc_pictures"]) or \
+                    dec.stats.frames != pictures:
+                sys.exit(f"features {name} {order}: launches {got}, "
+                         f"expected {want(order, pictures, m['mc_pictures'])}"
+                         f" (a picture each; K3/K4 for the "
+                         f"{m['mc_pictures']} with inter MBs)")
+            if "concealed" in m and \
+                    [list(c) for c in dec.concealed] != m["concealed"]:
+                sys.exit(f"features {name} {order}: concealed "
+                         f"{dec.concealed}, expected {m['concealed']}")
+            log("features", f"{name} order={order}: {len(md5)} frames "
+                f"{m['width']}x{m['height']} ({m['structure']}) MD5 == "
+                f"{m['expected']}; launches {got}; {wall:.4f} s, "
+                f"{len(md5) / wall:.3f} frames/s; on {smi}")
+        launches[order] = total
+
+    # (b) lockstep lanes, one launch a round
+    for what, (names, rounds, inter) in FEATURE_BATCHES.items():
+        datas = [(data / f"{n}.264").read_bytes() for n in names]
+        golden = [json.loads((data / f"{n}.json").read_text())["md5"]
+                  for n in names]
+        for order in paths:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            with BatchDecoder(len(names), device="cuda", order=order) as bd:
+                outs = bd.decode(datas)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(kernels.LAUNCHES)
+            for i, (frames, md5) in enumerate(zip(outs, golden)):
+                if bd.errors[i] is not None:
+                    sys.exit(f"features batch {what} {order}: lane {i} "
+                             f"failed: {bd.errors[i]!r}")
+                if [hashlib.md5(f.planar()).hexdigest()
+                        for f in frames] != md5:
+                    sys.exit(f"features batch {what} {order}: lane {i} "
+                             f"({names[i]}) MD5s differ")
+            if (bd.rounds, bd.inter_rounds) != (rounds, inter) or \
+                    got != want(order, rounds, inter):
+                sys.exit(f"features batch {what} {order}: launches {got} in "
+                         f"{bd.rounds} rounds ({bd.inter_rounds} inter), "
+                         f"expected {want(order, rounds, inter)}")
+            n = sum(len(f) for f in outs)
+            log("features", f"BatchDecoder({len(names)}) {what} {names} "
+                f"order={order}: every lane MD5 == expected; launches {got} "
+                f"in {bd.rounds} rounds ({bd.inter_rounds} inter); {n} "
+                f"frames in {wall:.4f} s, {n / wall:.3f} frames/s of the "
+                f"batch; on {smi}")
+
+    # (c) the CLI, as a subprocess
+    golden = json.loads(STREAM.with_suffix(".json").read_text())
+    size = golden["width"] * golden["height"] * 3 // 2
+
+    def cli(*args):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "arrow_h264_tpu_torch",
+                            *args], cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        return r, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, ref = Path(tmp) / "out.yuv", Path(tmp) / "ref.yuv"
+        for order in paths:
+            r, wall = cli("decode", str(STREAM), str(out), "--order", order)
+            yuv = out.read_bytes()
+            md5 = [hashlib.md5(yuv[i:i + size]).hexdigest()
+                   for i in range(0, len(yuv), size)]
+            if r.returncode != 0 or md5 != golden["md5"]:
+                sys.exit(f"features CLI decode --order {order}: exit "
+                         f"{r.returncode}, {len(md5)} frames, MD5s == golden: "
+                         f"{md5 == golden['md5']}\n{r.stdout}{r.stderr}")
+            log("features", f"CLI decode {STREAM.name} --order {order}: exit "
+                f"0, {len(md5)} frames MD5 == golden; {wall:.3f} s with the "
+                f"process start; said {r.stdout.strip()!r}; on {smi}")
+        r, _ = cli("info", str(STREAM))
+        if r.returncode != 0:
+            sys.exit(f"features CLI info: exit {r.returncode}\n{r.stderr}")
+        flipped = bytearray(out.read_bytes())
+        flipped[len(flipped) // 3] ^= 0x10
+        ref.write_bytes(flipped)
+        r, _ = cli("decode", str(STREAM), str(out), "--ref", str(ref))
+        if r.returncode != 1:
+            sys.exit(f"features CLI decode --ref (one byte flipped): exit "
+                     f"{r.returncode}, expected 1\n{r.stderr}")
+        log("features", f"CLI info: exit 0; decode --ref with one byte "
+            f"flipped: exit 1 ({r.stderr.strip()!r})")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -885,6 +1063,7 @@ def main() -> None:
 
     batch_launches = batch_phase(paths, smi)
     field_launches = fields_phase(paths, smi)
+    feature_launches = features_phase(paths, smi)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):
@@ -894,6 +1073,7 @@ def main() -> None:
         r["launches"] = batch_launches[order][key]
         r["launches_decode"] = launches[order][key]
         r["launches_fields"] = field_launches[order][key]
+        r["launches_features"] = feature_launches[order][key]
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,37 @@ def test_port_imports_no_jax():
               "ops.kernels.mc", "ops.kernels.intra_raster",
               "ops.kernels.deblock_raster", "ops.kernels.wavefront",
               "host.centropy", "dpb",
-              "bitstream.slicehdr", "mb.cabac_parse", "ops.abi"):
+              "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
+              "__main__", "conceal", "trace", "bitstream.sei",
+              "bitstream.fmo", "parallel.batch"):
         assert f"arrow_h264_tpu_torch.{m}" in out["mods"]
+
+
+def test_cli_help_imports_no_jax():
+    """`python -m arrow_h264_tpu_torch --help` runs in the clean
+    environment, and the CLI's process holds neither jax nor the JAX
+    package in sys.modules."""
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['arrow_h264_tpu_torch', '--help']\n"
+             "try:\n"
+             "    runpy.run_module('arrow_h264_tpu_torch', "
+             "run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    assert e.code == 0, e.code\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'arrow_h264_tpu')]\n"
+             "print('MODULES', bad)\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "decode" in r.stdout and "info" in r.stdout
+    assert r.stdout.strip().splitlines()[-1] == "MODULES []"
+    h = subprocess.run([sys.executable, "-m", "arrow_h264_tpu_torch",
+                        "decode", "--help"], cwd=REPO, env=_clean_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert h.returncode == 0, h.stderr
+    assert "--device" in h.stdout and "--order" in h.stdout
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py",

@@ -455,3 +455,98 @@ def test_batch_decoder_cuda(dev, order):
         assert [hashlib.md5(b).hexdigest() for b in ours] == meta["md5"]
         assert ours == [f.planar() for f in Decoder(
             device="cpu", order=order).decode_annexb(data)]
+
+
+# the committed feature streams (tools/feature_streams.py) and the lanes
+# of BatchDecoder runs over them: (lanes, rounds, rounds with an inter lane)
+FEATURES = sorted(p.stem for p in SMOKE.parent.glob("feat_*.json"))
+FEATURE_BATCHES = [
+    (("feat_wp18", "feat_wp18"), 3, 2),
+    (("feat_wp18", "feat_wp_table"), 3, 2),
+    (("feat_cif_cfg2", "feat_cif_cfg3", "feat_cif_cfg4"), 4, 3),
+    (("feat_fmo1080_interleave", "feat_fmo1080_explicit"), 3, 2),
+    (("feat_lossless_qcif", "feat_lossless_qcif"), 5, 4),
+    (("feat_qcif_cfg2", "batch_qcif_s3"), 5, 4),
+]
+
+
+def _launches(order, pictures, mc_pictures):
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(ORDERS[order], pictures))
+    want.update(mc_luma=mc_pictures, mc_chroma=mc_pictures)
+    return want
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("name", FEATURES)
+def test_decoder_cuda_feature_stream(dev, name, order):
+    """A committed feature stream (lossless, CIF, widths 512 and 976,
+    FMO/ASO, concealment, dense weights) on the card: MD5s equal to its
+    JSON's expected output, the order's intra and deblock kernels
+    launched once a picture and K3/K4 once a picture with inter MBs,
+    `concealed` as in the JSON."""
+    from arrow_h264_tpu_torch.api import Decoder
+    path = SMOKE.parent / f"{name}.264"
+    meta = json.loads(path.with_suffix(".json").read_text())
+    dec = Decoder(device=dev, order=order, conceal="concealed" in meta)
+    kernels.reset_launches()
+    md5 = [hashlib.md5(f.planar()).hexdigest()
+           for f in dec.decode_annexb(path.read_bytes())]
+    assert md5 == meta["md5"]
+    assert kernels.LAUNCHES == _launches(order, len(meta["structure"]),
+                                         meta["mc_pictures"])
+    if "concealed" in meta:
+        assert [list(c) for c in dec.concealed] == meta["concealed"]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("lanes,rounds,inter", FEATURE_BATCHES,
+                         ids=lambda v: "+".join(v) if isinstance(v, tuple)
+                         else None)
+def test_batch_decoder_cuda_features(dev, lanes, rounds, inter, order):
+    """BatchDecoder over feature lanes on the card: dense weights beside
+    dense or table weights, the CIF configs, the 1080p FMO streams,
+    lossless lanes, and lanes of 2 and 5 DPB slots (the batch's DPB is
+    sized for the largest; with lane 0's, lane 1 failed): every lane
+    equal to its MD5s, one launch a round."""
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    kernels.reset_launches()
+    with BatchDecoder(len(lanes), device=dev, order=order) as bd:
+        outs = bd.decode([(SMOKE.parent / f"{n}.264").read_bytes()
+                          for n in lanes])
+    assert bd.errors == [None] * len(lanes)
+    assert (bd.rounds, bd.inter_rounds) == (rounds, inter)
+    assert kernels.LAUNCHES == _launches(order, rounds, inter)
+    for n, frames in zip(lanes, outs):
+        meta = json.loads((SMOKE.parent / f"{n}.json").read_text())
+        assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
+            == meta["md5"], n
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_cli_cuda(dev, tmp_path, order):
+    """`python -m arrow_h264_tpu_torch decode` of the smoke stream on the
+    card writes its golden frames and exits 0; `info` exits 0; `--ref`
+    against a reference with one byte flipped exits 1."""
+    import subprocess
+    import sys
+    repo = SMOKE.parent.parent.parent
+    meta = json.loads(SMOKE.with_suffix(".json").read_text())
+    out = tmp_path / "out.yuv"
+
+    def cli(*args):
+        return subprocess.run([sys.executable, "-m", "arrow_h264_tpu_torch",
+                               *args], cwd=repo, capture_output=True,
+                              text=True, timeout=600).returncode
+
+    assert cli("decode", str(SMOKE), str(out), "--order", order) == 0
+    yuv = out.read_bytes()
+    size = meta["width"] * meta["height"] * 3 // 2
+    assert [hashlib.md5(yuv[i:i + size]).hexdigest()
+            for i in range(0, len(yuv), size)] == meta["md5"]
+    assert cli("info", str(SMOKE)) == 0
+    flipped = bytearray(yuv)
+    flipped[len(flipped) // 3] ^= 0x10
+    (tmp_path / "ref.yuv").write_bytes(flipped)
+    assert cli("decode", str(SMOKE), str(out), "--order", order, "--ref",
+               str(tmp_path / "ref.yuv")) == 1

@@ -20,6 +20,13 @@ from arrow_h264_tpu_torch.api import Decoder
 from arrow_h264_tpu_torch.models import pipeline as tpipeline
 from tools import streams
 
+# The suite runs in six pytest-xdist workers on one host, and torch's
+# default of one intra-op thread per core makes them oversubscribe it: six
+# concurrent CPU decodes of a 1080p stream took 463 s each with 8 threads
+# and 15 s with 2 (an 8-core host).  The port's test modules that decode
+# import this one, so that their worker keeps to 2 threads.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 QCIF = (176, 144)
 FLAT4, FLAT8 = [[16] * 16] * 6, [[16] * 64] * 2
 
