@@ -10,7 +10,9 @@ carried over from `arrow_h264_tpu.api` with the behaviour unchanged.
 Reconstruction runs in `models.pipeline.DevicePipeline` on `device`;
 `order` chooses its intra and deblock kernels ("phase", the default: the
 knight-move wavefront; "raster": raster order within each MB row, one
-worker per row, two MBs behind the row above).
+worker per row, two MBs behind the row above), and `upload` how a
+picture's ABI reaches the device ("wire", the default: one compact uint8
+buffer, ops/wire.py; "dense": the dense int32 ABI key by key).
 Progressive Baseline/Main/High streams, and interlaced streams whose
 pictures are all fields (PAFF): each field is decoded as a picture of
 half the frame's height, and a field pair is output as one woven frame.
@@ -35,11 +37,11 @@ from .conceal import conceal_abi, nearest_ref_pic, slice_coverage
 from .dpb import DPB, WovenPair
 from .host import centropy
 from .mb.parse import PictureParse
-from .models.pipeline import ORDERS, DevicePipeline
+from .models.pipeline import ORDERS, UPLOADS, DevicePipeline
 from .ops.abi import pack_frame
 from .trace import (
     dump_se_log, trace_frame_abi, trace_se_target, trace_slice_header,
-    trace_target,
+    trace_target, trace_upload,
 )
 
 
@@ -97,7 +99,8 @@ class PendingFrame:
         self._done = None
 
     def start_fetch(self) -> None:
-        """Queue the copy to the host on the current stream (once)."""
+        """Queue the copy to the host on the current stream of the planes'
+        device (once)."""
         if self._host is not None:
             return
         planes = (self.y, self.cb, self.cr)
@@ -106,10 +109,13 @@ class PendingFrame:
             return
         self._host = tuple(torch.empty(p.shape, dtype=p.dtype,
                                        pin_memory=True) for p in planes)
-        for h, p in zip(self._host, planes):
-            h.copy_(p, non_blocking=True)
-        self._done = torch.cuda.Event()
-        self._done.record()
+        # on the planes' device's stream (a sharded batch's lanes live on
+        # several devices)
+        with torch.cuda.device(self.y.device):
+            for h, p in zip(self._host, planes):
+                h.copy_(p, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
 
     def finalize(self) -> Frame:
         """Wait for the copy (starting it if need be) -> cropped Frame."""
@@ -132,6 +138,7 @@ class DecodeStats:
     device_dispatch_s: float = 0.0  # upload + submission of reconstruction
     emit_sync_s: float = 0.0        # device->host copy at output time
     concealed_mbs: int = 0
+    upload_bytes: int = 0           # host->device bytes of the pictures' ABIs
 
     def as_dict(self) -> dict:
         d = dict(self.__dict__)
@@ -147,16 +154,23 @@ class Decoder:
     present.  entropy="cpp" uses the native host entropy library, "python"
     the pure-Python parser.  order: "phase" (default) or "raster", the
     intra and deblock kernels of models.pipeline.decode_frames_batch_fn.
+    upload: "wire" (default) or "dense", how each picture's ABI is shipped
+    (models.pipeline.DevicePipeline.decode_frame; pictures with dense
+    per-cell weights always go dense).
     """
 
     def __init__(self, device="cuda", entropy: str = "cpp", trace=None,
                  conceal: bool = False, trace_se=None,
-                 order: str = "phase") -> None:
+                 order: str = "phase", upload: str = "wire") -> None:
         self.device = torch.device(device)
         if order not in ORDERS:
             raise ValueError(f"order {order!r}: expected one of "
                              f"{sorted(ORDERS)}")
+        if upload not in UPLOADS:
+            raise ValueError(f"upload {upload!r}: expected one of "
+                             f"{list(UPLOADS)}")
         self.order = order
+        self.upload = upload
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Decoder(device='cuda'): no CUDA device")
         self._trace = trace_target(trace)
@@ -187,7 +201,7 @@ class Decoder:
                sps.pic_width_in_mbs, sps.pic_height_in_map_units)
         if key not in self._pipelines:
             self._pipelines[key] = DevicePipeline(sps, pps, self.device,
-                                                  self.order)
+                                                  self.order, self.upload)
         return self._pipelines[key]
 
     def decode_annexb(self, data: bytes):
@@ -380,6 +394,10 @@ class Decoder:
         t0 = time.perf_counter()
         y, cb, cr = pipeline.decode_frame(abi)
         self.stats.device_dispatch_s += time.perf_counter() - t0
+        mode, nbytes = pipeline.last_upload
+        self.stats.upload_bytes += nbytes
+        if self._trace is not None:
+            trace_upload(self._trace, self._frame_idx - 1, mode, nbytes)
         yield from self.commit(pic, poc, y, cb, cr, pipeline.n_slots,
                                pipeline.store_ref)
 

@@ -125,6 +125,23 @@ def load_lib(trace: bool = False):
         lib.h264e_trace_set.argtypes = [C.c_void_p, C.c_long]
         lib.h264e_trace_count.restype = C.c_long
         lib.h264e_trace_count.argtypes = []
+    lib.h264e_scan_rows32.restype = C.c_long
+    lib.h264e_scan_rows32.argtypes = [
+        C.c_void_p, C.c_long, C.c_int, C.c_void_p, C.c_void_p, C.c_long,
+        C.POINTER(C.c_int)]
+    lib.h264e_scan_blocks8.restype = C.c_long
+    lib.h264e_scan_blocks8.argtypes = [
+        C.c_void_p, C.c_long, C.c_int, C.c_void_p, C.c_void_p, C.c_void_p,
+        C.c_long, C.c_long, C.POINTER(C.c_long), C.POINTER(C.c_int)]
+    lib.h264e_gather_blocks8.restype = C.c_long
+    lib.h264e_gather_blocks8.argtypes = [
+        C.c_void_p, C.c_long, C.c_int, C.c_void_p, C.c_long, C.c_void_p,
+        C.c_void_p, C.c_void_p, C.c_long, C.c_long, C.POINTER(C.c_long),
+        C.POINTER(C.c_int)]
+    lib.h264e_scan_inter.restype = C.c_long
+    lib.h264e_scan_inter.argtypes = [
+        C.c_void_p, C.c_void_p, C.c_void_p, C.c_long, C.c_void_p,
+        C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p, C.c_long]
     lib.h264e_abi_version.restype = C.c_int
     lib.h264e_abi_version.argtypes = []
     if lib.h264e_abi_version() != ABI_VERSION:
@@ -136,6 +153,89 @@ def load_lib(trace: bool = False):
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
+
+
+def scan_rows32(src2d: np.ndarray, cap: int):
+    """C-side nonzero-row scan + int16 gather.
+
+    src2d: contiguous [rows, cols] int32.  Returns (k_total, idx [cap]
+    i32, vals [cap, cols] i16, overflow).  If k_total > cap only the
+    first cap rows were written (caller goes dense)."""
+    lib = load_lib()
+    rows, cols = src2d.shape
+    idx = np.empty(cap, np.int32)
+    vals = np.empty((cap, cols), np.int16)
+    ovf = C.c_int(0)
+    k = lib.h264e_scan_rows32(_ptr(src2d), rows, cols, _ptr(idx),
+                              _ptr(vals), cap, C.byref(ovf))
+    return int(k), idx, vals, bool(ovf.value)
+
+
+def scan_blocks8(src2d: np.ndarray, cap_r: int, cap_v: int):
+    """C-side bitmap+packed-int8 scan (ops/wire.py bm8 scheme).
+
+    src2d: contiguous [rows, cols] int32, cols a multiple of 16 (or 8).
+    Returns (k_rows, idx [cap_r] i32, bm [cap_r, ceil(cols/16)] u16,
+    vals [cap_v] i8, nnz_written, overflow).  overflow is set when any
+    value misses int8 or nnz exceeds cap_v; k_rows > cap_r means the
+    row cap was hit — either way the caller falls back to dense."""
+    lib = load_lib()
+    rows, cols = src2d.shape
+    bmw = (cols + 15) // 16
+    idx = np.empty(cap_r, np.int32)
+    bm = np.empty((cap_r, bmw), np.uint16)
+    vals = np.empty(cap_v, np.int8)
+    nnz = C.c_long(0)
+    ovf = C.c_int(0)
+    k = lib.h264e_scan_blocks8(_ptr(src2d), rows, cols, _ptr(idx), _ptr(bm),
+                               _ptr(vals), cap_r, cap_v, C.byref(nnz),
+                               C.byref(ovf))
+    return int(k), idx, bm, vals, int(nnz.value), bool(ovf.value)
+
+
+def gather_blocks8(src2d: np.ndarray, rows_hint: np.ndarray,
+                   cap_r: int, cap_v: int):
+    """Hinted scan_blocks8: visit only the decode-time recorded rows.
+
+    Returns the scan_blocks8 tuple, or None when the hint is unusable
+    (non-ascending rows, e.g. ASO) — the caller falls back to the full
+    scan.  Output is byte-identical to scan_blocks8 (all-zero hinted
+    rows are skipped in C)."""
+    lib = load_lib()
+    rows, cols = src2d.shape
+    bmw = (cols + 15) // 16
+    idx = np.empty(cap_r, np.int32)
+    bm = np.empty((cap_r, bmw), np.uint16)
+    vals = np.empty(cap_v, np.int8)
+    nnz = C.c_long(0)
+    ovf = C.c_int(0)
+    k = lib.h264e_gather_blocks8(
+        _ptr(src2d), rows, cols, _ptr(rows_hint), len(rows_hint),
+        _ptr(idx), _ptr(bm), _ptr(vals), cap_r, cap_v,
+        C.byref(nnz), C.byref(ovf))
+    if k < 0:
+        return None
+    return int(k), idx, bm, vals, int(nnz.value), bool(ovf.value)
+
+
+def scan_inter(mv: np.ndarray, refidx: np.ndarray, refslot: np.ndarray,
+               cap: int):
+    """C-side MV/ref uniformity scan (ops/wire.py inter base scheme).
+
+    mv [n,16,2,2] / refidx,refslot [n,16,2], all contiguous int32.
+    Returns (k_nonuniform, mv_base [n,4] i16, ref_base [n,4] i8,
+    idx [cap] i32, mv_nu [cap,64] i16, ref_nu [cap,64] i8)."""
+    lib = load_lib()
+    n = mv.shape[0]
+    mv_base = np.empty((n, 4), np.int16)
+    ref_base = np.empty((n, 4), np.int8)
+    idx = np.empty(cap, np.int32)
+    mv_nu = np.empty((cap, 64), np.int16)
+    ref_nu = np.empty((cap, 64), np.int8)
+    k = lib.h264e_scan_inter(_ptr(mv), _ptr(refidx), _ptr(refslot), n,
+                             _ptr(mv_base), _ptr(ref_base), _ptr(idx),
+                             _ptr(mv_nu), _ptr(ref_nu), cap)
+    return int(k), mv_base, ref_base, idx, mv_nu, ref_nu
 
 
 class PicBufPool:
@@ -204,9 +304,9 @@ def _alloc_arrays(mb_w: int, mb_h: int) -> dict:
         "cbf_luma": z(h4, w4), "cbf_luma_dc": z(mb_h, mb_w),
         "cbf_cdc": z(2, mb_h, mb_w), "cbf_cac": z(2, h2, w2),
         "mvd_grid": z(2, h4, w4, 2),
-        # nonzero-row hints the C++ parser records (the JAX package's wire
-        # format reads them, the port does not); caps are the full grids
-        # so appends never overflow
+        # nonzero-row hints the C++ parser records (ops/wire.py's pack
+        # reads them instead of scanning every row); caps are the full
+        # grids so appends never overflow
         "nzr_l4": z(n * 16), "nzr_l8": z(n * 4), "nzr_ca": z(n * 8),
         "nzr_ldc": z(n), "nzr_cdc": z(n), "nzr_cnt": z(5),
     }
@@ -282,6 +382,15 @@ class CppPictureParse:
         # FMO: NextMbAddress tables per slice_group_change_cycle (types
         # 3-5 re-derive the map per slice; static types share one entry)
         self._fmo_tabs: dict[int, np.ndarray] = {}
+
+    def nz_row_hints(self) -> dict:
+        """Decode-time nonzero coeff rows per wire field (views into the
+        pooled buffers — valid until retire()).  Keys match
+        ops/wire._COEFF_FIELDS short names."""
+        a, cnt = self.a, self.a["nzr_cnt"]
+        return {"l4": a["nzr_l4"][:cnt[0]], "l8": a["nzr_l8"][:cnt[1]],
+                "ca": a["nzr_ca"][:cnt[2]], "ldc": a["nzr_ldc"][:cnt[3]],
+                "cdc": a["nzr_cdc"][:cnt[4]]}
 
     def retire(self) -> None:
         """Return the arrays to the pool (caller: api.Decoder, once the
@@ -434,4 +543,8 @@ def pack_frame_cpp(pic: CppPictureParse, cur_poc: int = 0) -> FrameABI:
     note_nonexisting_refs(abi, pic.slice_reflists)
     fill_weight_tables(abi, pic.pps, pic.headers, pic.slice_reflists,
                        cur_poc)
+    # decode-time nonzero-row hints for ops.wire.pack_wire_raw (gather
+    # instead of full dense rescan); safe under conceal (it only ZEROES
+    # rows, and the gather skips all-zero hinted rows)
+    abi["_nzr"] = pic.nz_row_hints()
     return abi

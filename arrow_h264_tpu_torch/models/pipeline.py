@@ -16,11 +16,18 @@ reference field has its own DPB slot, K4 reads a per-slot vertical chroma
 offset for references of the other parity (`cvoff`), and the deblock
 tables follow the field rules (`deblock_tables(field=True)`).
 
-The host ships the dense ABI (`ABI_DEVICE_KEYS`) through pinned staging
-tensors (`upload_batch`, one per lane of a batch); coefficient classes
-that are all zero in every lane stay on the host and their residual paths
-are skipped.  A batch runs one of two modes: no inter MBs (no MC) or
-inter.  `store_refs_fn` is the batch's one reference store a round.
+The host ships a picture as one compact uint8 buffer (ops.wire, the
+default upload "wire"): `upload_wire` emits each lane's buffer into its
+row of one pinned [B, total] staging tensor, copies it with one
+non_blocking copy and scatters it back into the dense ABI on the device
+(ops.wire.unpack_wire).  upload="dense" ships the dense int32 ABI
+(`ABI_DEVICE_KEYS`) key by key instead (`upload_batch`), as does every
+picture with dense per-cell weights (abi["wp"], the slice-row overflow of
+ops.abi), which the wire's 4-bit slice rows cannot carry.  Either way,
+coefficient classes that are all zero in every lane stay on the host and
+their residual paths are skipped.  A batch runs one of two modes: no
+inter MBs (no MC) or inter.  `store_refs_fn` is the batch's one reference
+store a round.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..ops.kernels.mc import mc_chroma, mc_luma
 from ..ops.transforms import (
     COEFF_KEYS, _mb_mask_to_plane, make_ws_consts, residual_planes,
 )
+from ..ops.wire import emit_wire, pack_wire_raw, unpack_wire, wire_total
 
 ABI_DEVICE_KEYS = (
     "kind", "qp", "luma4", "luma8", "luma_dc", "chroma_dc", "chroma_ac",
@@ -51,6 +59,8 @@ ABI_DEVICE_KEYS = (
 # order -> (intra, deblock) kernel wrappers; both pairs share one contract
 ORDERS = {"phase": (intra_phase, deblock_phase),
           "raster": (intra_raster, deblock_raster)}
+# how the host ships a picture's ABI: the compact wire, or dense int32
+UPLOADS = ("wire", "dense")
 
 
 def _stage(rows, device):
@@ -105,17 +115,9 @@ def upload_batch(abis, device, n_slots: int | None = None) -> dict:
         if k in COEFF_KEYS and not any(r.any() for r in rows):
             continue
         out[k] = _stage(rows, device)
-    cv = [a.get("cvoff") for a in abis]
-    if any(c is not None for c in cv):
-        if n_slots is None:
-            raise ValueError("field pictures: upload_batch needs n_slots")
-        rows = [np.zeros(n_slots, np.int32) if c is None else np.asarray(c)
-                for c in cv]
-        for i, r in enumerate(rows):
-            if r[n_slots:].any():
-                raise ValueError(f"lane {i}: cvoff of a slot past the "
-                                 f"{n_slots} DPB slots")
-        out["cvoff"] = _stage([r[:n_slots] for r in rows], device)
+    cv = stage_cvoff([a.get("cvoff") for a in abis], n_slots, device)
+    if cv is not None:
+        out["cvoff"] = cv
     if dense:
         tables = [i for i in range(len(abis)) if i not in dense]
         for k in ("wp", "logwd"):
@@ -132,6 +134,71 @@ def upload_batch(abis, device, n_slots: int | None = None) -> dict:
             for k in ("wp", "logwd"):
                 out[k][ti] = sub[k]
     return out
+
+
+def stage_cvoff(cvoffs, n_slots: int | None, device):
+    """The lanes' per-slot chroma offsets (api.field_cvoff, [64] each, or
+    None for a frame lane) -> cvoff [B, n_slots] int32 on `device`, or
+    None when no lane has one.  An entry at or past n_slots must be 0 (no
+    picture can be stored there)."""
+    if all(c is None for c in cvoffs):
+        return None
+    if n_slots is None:
+        raise ValueError("field pictures: the upload needs n_slots")
+    rows = [np.zeros(n_slots, np.int32) if c is None else np.asarray(c)
+            for c in cvoffs]
+    for i, r in enumerate(rows):
+        if r[n_slots:].any():
+            raise ValueError(f"lane {i}: cvoff of a slot past the "
+                             f"{n_slots} DPB slots")
+    return _stage([r[:n_slots] for r in rows], torch.device(device))
+
+
+def wire_staging(n_lanes: int, total: int, device) -> torch.Tensor:
+    """Host tensor [n_lanes, total] uint8 that the lanes' wire buffers are
+    emitted into (ops.wire.emit_wire(..., out=row.numpy())): pinned for a
+    CUDA device, so that wire_to_device copies it with non_blocking=True
+    (the caching host allocator keeps it until the copy has run)."""
+    return torch.empty((n_lanes, total), dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def wire_to_device(buf, target, mb_w: int, mb_h: int, device) -> dict:
+    """Staged wire buffers buf [B, total] (spec `target`) -> the dense ABI
+    [B, ...] on `device`: one copy, then ops.wire.unpack_wire there."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        buf = buf.to(device, non_blocking=True)
+    return unpack_wire(buf, mb_w, mb_h, target)
+
+
+def upload_wire(raws, target, mb_w: int, mb_h: int, device,
+                n_slots: int | None = None, cvoffs=None) -> dict:
+    """Lanes' packed wire records -> dict of device tensors [B, ...], as
+    upload_batch gives for the lanes' dense ABIs (refid aside:
+    ops.wire.unpack_wire).
+
+    raws: (raw, spec) of ops.wire.pack_wire_raw, one per lane; target: a
+    spec that every lane's conforms to (ops.wire.merge_specs of theirs, or
+    the one lane's own).  Each lane is emitted into its row of one staging
+    tensor, which goes to the device in one copy.  cvoffs: each lane's
+    abi.get("cvoff") for field pictures (stage_cvoff)."""
+    device = torch.device(device)
+    n = mb_w * mb_h
+    buf = wire_staging(len(raws), wire_total(target, n), device)
+    rows = buf.numpy()
+    for i, (raw, spec) in enumerate(raws):
+        emit_wire(raw, spec, target, n, out=rows[i])
+    out = wire_to_device(buf, target, mb_w, mb_h, device)
+    cv = stage_cvoff(cvoffs or [None] * len(raws), n_slots, device)
+    if cv is not None:
+        out["cvoff"] = cv
+    return out
+
+
+def upload_nbytes(batch: dict) -> int:
+    """Bytes of the tensors of an uploaded ABI dict."""
+    return sum(t.numel() * t.element_size() for t in batch.values())
 
 
 def upload_abi(abi, device, n_slots: int | None = None) -> dict:
@@ -278,11 +345,18 @@ def store_ref_fn(dpb_y, dpb_c, slot: int, y, cb, cr) -> None:
 class DevicePipeline:
     """Per (sps, pps) frame reconstruction + the device DPB slots."""
 
-    def __init__(self, sps: SPS, pps: PPS, device, order: str = "phase"):
+    def __init__(self, sps: SPS, pps: PPS, device, order: str = "phase",
+                 upload: str = "wire"):
         if order not in ORDERS:
             raise ValueError(f"order {order!r}: expected one of "
                              f"{sorted(ORDERS)}")
+        if upload not in UPLOADS:
+            raise ValueError(f"upload {upload!r}: expected one of "
+                             f"{list(UPLOADS)}")
         self.device = torch.device(device)
+        self.upload = upload
+        # (mode, bytes) of the last decode_frame's upload
+        self.last_upload: tuple[str, int] | None = None
         self._kw = decode_consts(stream_params(sps, pps), self.device, order)
         self.n_slots = dpb_slots(sps)
         self.sps, self.pps = sps, pps
@@ -294,9 +368,20 @@ class DevicePipeline:
         """Host FrameABI -> (y, cb, cr) uint8 device planes (uncropped; a
         field's for a field picture)."""
         inter = bool((np.asarray(abi["kind"]) >= KIND_P).any())
-        return decode_frame_fn(upload_abi(abi, self.device, self.n_slots),
-                               self.dpb_y, self.dpb_c, inter=inter,
-                               **self._kw)
+        if self.upload == "wire" and "wp" not in abi:
+            raw, spec = pack_wire_raw(abi, self.mb_w, self.mb_h)
+            batch = upload_wire([(raw, spec)], spec, self.mb_w, self.mb_h,
+                                self.device, self.n_slots,
+                                [abi.get("cvoff")])
+            self.last_upload = ("wire", wire_total(spec, self.mb_w * self.mb_h)
+                                + 4 * self.n_slots * ("cvoff" in batch))
+        else:
+            batch = upload_batch([abi], self.device, self.n_slots)
+            self.last_upload = ("dense", upload_nbytes(batch))
+        out = decode_frames_batch_fn(batch, self.dpb_y[None],
+                                     self.dpb_c[None], inter=inter,
+                                     **self._kw)
+        return tuple(p[0] for p in out)
 
     def store_ref(self, slot: int, y, cb, cr) -> None:
         store_ref_fn(self.dpb_y, self.dpb_c, slot, y, cb, cr)

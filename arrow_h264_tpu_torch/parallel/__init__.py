@@ -1,2 +1,2 @@
-"""Multi-stream decode: N streams in lockstep rounds on one device
-(`batch.BatchDecoder`)."""
+"""Multi-stream decode: N streams in lockstep rounds (`batch.BatchDecoder`),
+on one device or split over several (`sharding`)."""

@@ -1,12 +1,21 @@
-"""Lockstep multi-stream decode on one device.
+"""Lockstep multi-stream decode, on one device or sharded over several.
 
-Port of `arrow_h264_tpu.parallel.batch` without the mesh.  Host entropy
-parses each stream in a thread pool (the C++ slice parser releases the
-GIL), the streams' next pictures form a round, and ONE call of
-`decode_frames_batch_fn` reconstructs the whole round over [B, ...]
-tensors, so each kernel is launched once a round for all lanes.  One
-batched reference store (`store_refs_fn`) follows.  The next round's parse
-runs while this round's device work is queued.
+Port of `arrow_h264_tpu.parallel.batch`.  Host entropy parses each stream
+in a thread pool (the C++ slice parser releases the GIL), the streams'
+next pictures form a round, and ONE call of `decode_frames_batch_fn` a
+shard reconstructs the whole round over [B/k, ...] tensors, so each
+kernel is launched once a round and shard for all its lanes.  One batched
+reference store (`store_refs_fn`) a shard follows.  The next round's parse
+runs while this round's device work is queued.  The mesh
+(parallel.sharding) is one device unless the caller gives more.
+
+Upload: the pool packs each lane's picture into wire records
+(ops.wire.pack_wire_raw) beside its ABI; the main thread merges the
+lanes' specs into the round's, the pool emits each lane into its row of
+one pinned staging tensor, and each shard's rows go to its device in one
+copy and are unpacked there (models.pipeline.wire_to_device).  A round
+with a lane of dense per-cell weights, or every round with
+upload="dense", ships the dense ABI instead (`upload_batch`).
 
 Per-stream error isolation: a stream that raises during parse, ABI pack
 or commit is recorded in `BatchDecoder.errors` and leaves the rounds; the
@@ -28,10 +37,15 @@ import torch
 
 from ..api import Decoder, Frame, PendingFrame
 from ..models.pipeline import (
-    ORDERS, decode_consts, decode_frames_batch_fn, dpb_alloc, dpb_slots,
-    store_refs_fn, stream_params, upload_batch,
+    ORDERS, UPLOADS, decode_consts, dpb_alloc, dpb_slots, stage_cvoff,
+    stream_params, upload_batch, upload_nbytes, wire_staging,
+    wire_to_device,
 )
 from ..ops.abi import KIND_P, empty_frame_abi
+from ..ops.wire import emit_wire, merge_specs, pack_wire_raw, wire_total
+from .sharding import (
+    make_stream_mesh, shard_bounds, sharded_decode_fn, sharded_store_fn,
+)
 
 
 def _inter(abis) -> bool:
@@ -39,8 +53,22 @@ def _inter(abis) -> bool:
     return any(bool((np.asarray(a["kind"]) >= KIND_P).any()) for a in abis)
 
 
+def default_mesh(n_streams: int, device) -> tuple:
+    """The mesh of a BatchDecoder given `device` and no mesh: for "cuda"
+    without an index every visible GPU when n_streams splits evenly over
+    them, else the current one; any other device alone."""
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None:
+        return (device,)
+    if not torch.cuda.is_available():
+        raise RuntimeError("BatchDecoder(device='cuda'): no CUDA device")
+    if n_streams % torch.cuda.device_count() == 0:
+        return make_stream_mesh()
+    return (torch.device("cuda", torch.cuda.current_device()),)
+
+
 class BatchDecoder:
-    """Decode N same-resolution streams in lockstep rounds on `device`.
+    """Decode N same-resolution streams in lockstep rounds on `mesh`.
 
     materialize=True returns Frames; each round's device->host copies are
     queued when the round commits and waited for a round later.
@@ -49,23 +77,36 @@ class BatchDecoder:
     when its round commits, and its return value replaces the frame in
     the result, so a caller that consumes frames on the device keeps only
     the DPB and one round resident.  order: the intra and deblock kernels,
-    as for api.Decoder.
+    and upload: "wire" or "dense", as for api.Decoder.
+
+    mesh: the devices of the shards (parallel.sharding: lanes split into
+    len(mesh) contiguous shards, which must be even), default
+    default_mesh(n_streams, device).  A lane's frames stay on its shard's
+    device until fetched.
     """
 
-    def __init__(self, n_streams: int, device="cuda", entropy: str = "cpp",
-                 materialize: bool = True, on_frame=None,
-                 order: str = "phase"):
+    def __init__(self, n_streams: int, device="cuda", mesh=None,
+                 entropy: str = "cpp", materialize: bool = True,
+                 on_frame=None, order: str = "phase", upload: str = "wire"):
         if order not in ORDERS:
             raise ValueError(f"order {order!r}: expected one of "
                              f"{sorted(ORDERS)}")
+        if upload not in UPLOADS:
+            raise ValueError(f"upload {upload!r}: expected one of "
+                             f"{list(UPLOADS)}")
         if on_frame is not None and materialize:
             raise ValueError("on_frame streams device frames; use "
                              "materialize=False")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.mesh = default_mesh(n_streams, device) if mesh is None \
+            else make_stream_mesh(mesh)
+        if any(d.type == "cuda" for d in self.mesh) and \
+                not torch.cuda.is_available():
             raise RuntimeError("BatchDecoder(device='cuda'): no CUDA device")
+        self._shards = shard_bounds(self.mesh, n_streams)
+        self.device = self.mesh[0]
         self.n_streams = n_streams
         self.order = order
+        self.upload = upload
         self.materialize = materialize
         self.on_frame = on_frame
         # lanes: the host half of a Decoder each (parse, pack, DPB
@@ -77,6 +118,9 @@ class BatchDecoder:
         self.errors: list = [None] * n_streams
         self.rounds = 0             # lockstep rounds of the last decode
         self.inter_rounds = 0       # ... of them with an inter lane
+        self.wire_rounds = 0        # ... of them uploaded as wire buffers
+        self.dense_rounds = 0       # ... and as the dense ABI
+        self.upload_s = 0.0         # main thread's seconds in the uploads
         self._params = None
         self._pool = ThreadPoolExecutor(
             max_workers=max(1, min(n_streams, os.cpu_count() or 1)))
@@ -104,19 +148,75 @@ class BatchDecoder:
     def _init_device(self, params: tuple, n_slots: int) -> None:
         """Device state for lanes of stream_params `params`, each with a
         DPB of n_slots slots (the most that a lane of the first round
-        needs)."""
+        needs): each shard's DPBs on its device."""
         self._params = params
-        self._kw = decode_consts(params, self.device, self.order)
+        B = self.n_streams
+        self._step = sharded_decode_fn(
+            self.mesh, B, **decode_consts(params, self.device, self.order))
+        self._store = sharded_store_fn(self.mesh, B)
         mb_w, mb_h = params[:2]
         self.n_slots = n_slots
-        B = self.n_streams
-        y, c = dpb_alloc(mb_w, mb_h, B * self.n_slots, self.device)
-        self._dpb_y = y.view((B, self.n_slots) + y.shape[1:])
-        self._dpb_c = c.view((B, self.n_slots) + c.shape[1:])
+        per = B // len(self.mesh)
+        self._dpb_y, self._dpb_c = [], []
+        for dev in self.mesh:
+            y, c = dpb_alloc(mb_w, mb_h, per * n_slots, dev)
+            self._dpb_y.append(y.view((per, n_slots) + y.shape[1:]))
+            self._dpb_c.append(c.view((per, n_slots) + c.shape[1:]))
         # what finished and failed lanes ship, so that B stays fixed: all
         # intra, no coefficients, qp 0 (no edge is filtered), no reference
         # read; its output is never committed or stored
         self._dummy = empty_frame_abi(mb_w, mb_h)
+        self._dummy_wire = pack_wire_raw(self._dummy, mb_w, mb_h)
+
+    def _upload(self, abis: dict, wires: dict) -> list[dict]:
+        """The round's ABI dict of each shard on its device: the lanes of
+        `abis` (lane -> host ABI) and the dummy for the others, as wire
+        buffers (`wires`: lane -> (raw, spec)) unless upload="dense" or
+        a lane carries dense per-cell weights.  Counts the round and its
+        lanes' upload_bytes."""
+        B = self.n_streams
+        if self.upload == "dense" or any("wp" in a for a in abis.values()):
+            self.dense_rounds += 1
+            out = []
+            for (s0, s1), dev in zip(self._shards, self.mesh):
+                batch = upload_batch(
+                    [abis.get(i, self._dummy) for i in range(s0, s1)], dev,
+                    self.n_slots)
+                lane_bytes = upload_nbytes(batch) // (s1 - s0)
+                for i in range(s0, s1):
+                    if i in abis:
+                        self.decoders[i].stats.upload_bytes += lane_bytes
+                out.append(batch)
+            return out
+        self.wire_rounds += 1
+        mb_w, mb_h = self._params[:2]
+        n = mb_w * mb_h
+        specs = [w[1] for w in wires.values()]
+        if len(wires) < B:
+            specs.append(self._dummy_wire[1])
+        target = merge_specs(specs)
+        total = wire_total(target, n)
+        buf = wire_staging(B, total, self.device)
+        rows = buf.numpy()
+
+        def emit(i):
+            emit_wire(*wires.get(i, self._dummy_wire), target, n,
+                      out=rows[i])
+
+        list(self._pool.map(emit, range(B)))
+        out = []
+        for (s0, s1), dev in zip(self._shards, self.mesh):
+            batch = wire_to_device(buf[s0:s1], target, mb_w, mb_h, dev)
+            cv = stage_cvoff([abis[i].get("cvoff") if i in abis else None
+                              for i in range(s0, s1)], self.n_slots, dev)
+            if cv is not None:
+                batch["cvoff"] = cv
+            out.append(batch)
+        field = any("cvoff" in a for a in abis.values())
+        for i in wires:
+            self.decoders[i].stats.upload_bytes += \
+                total + 4 * self.n_slots * field
+        return out
 
     # ---- lockstep decode --------------------------------------------------
 
@@ -134,6 +234,10 @@ class BatchDecoder:
         in_flight: list[tuple[int, int]] = []   # fetches started, (lane, j)
         self.errors = [None] * B
         self.rounds = self.inter_rounds = 0
+        self.wire_rounds = self.dense_rounds = 0
+        self.upload_s = 0.0
+        shard_of = [(s, i - s0) for s, (s0, s1) in enumerate(self._shards)
+                    for i in range(s0, s1)]
 
         def fail(i, e):
             self.errors[i] = e
@@ -152,9 +256,15 @@ class BatchDecoder:
             self.decoders[i].stats.host_parse_s += time.perf_counter() - t0
 
         def pack(i):
+            """(host ABI, wire records or None) of lane i's picture."""
             t0 = time.perf_counter()
             try:
-                return self.decoders[i].pack_abi(*pending[i])
+                abi = self.decoders[i].pack_abi(*pending[i])
+                if self.upload == "dense" or "wp" in abi:
+                    return abi, None
+                sps = pending[i][0].sps
+                return abi, pack_wire_raw(abi, sps.pic_width_in_mbs,
+                                          sps.pic_height_in_map_units)
             except Exception as e:
                 fail(i, e)
                 return None
@@ -165,8 +275,11 @@ class BatchDecoder:
         list(self._pool.map(advance, range(B)))
         while any(p is not None for p in pending):
             live = [i for i in range(B) if pending[i] is not None]
-            abis = {i: abi for i, abi in zip(live, self._pool.map(pack, live))
-                    if abi is not None}
+            packed = dict(zip(live, self._pool.map(pack, live)))
+            abis = {i: p[0] for i, p in packed.items() if p is not None}
+            wires = {i: p[1] for i, p in packed.items()
+                     if p is not None and p[1] is not None}
+            del packed
             if abis and self._params is None:
                 pic = pending[next(iter(abis))][0]
                 self._init_device(
@@ -186,16 +299,18 @@ class BatchDecoder:
                         f"than the {self.n_slots} of the batch's first "
                         "round"))
                     del abis[i]
+                    wires.pop(i, None)
             live = [i for i in live if i in abis]
             if not live:
                 break
 
             t0 = time.perf_counter()
             inter = _inter(abis.values())
-            batch = upload_batch([abis.get(i, self._dummy) for i in range(B)],
-                                 self.device, self.n_slots)
-            yb, cbb, crb = decode_frames_batch_fn(
-                batch, self._dpb_y, self._dpb_c, inter=inter, **self._kw)
+            batches = self._upload(abis, wires)
+            wires.clear()  # release views of the parse buffers
+            self.upload_s += time.perf_counter() - t0
+            planes = self._step(batches, self._dpb_y, self._dpb_c, inter)
+            del batches
             self.rounds += 1
             self.inter_rounds += inter
             dispatch_s = time.perf_counter() - t0
@@ -209,16 +324,17 @@ class BatchDecoder:
                     lanes.append(i)
                     slots.append(slot)
 
+                s, j = shard_of[i]
                 try:
                     frames[i].extend(self.decoders[i].commit(
-                        *pending[i], yb[i], cbb[i], crb[i], self.n_slots,
-                        rec))
+                        *pending[i], *(p[j] for p in planes[s]),
+                        self.n_slots, rec))
                 except Exception as e:
                     fail(i, e)
             t0 = time.perf_counter()
             keep = [k for k, i in enumerate(lanes) if self.errors[i] is None]
-            store_refs_fn(self._dpb_y, self._dpb_c, [lanes[k] for k in keep],
-                          [slots[k] for k in keep], yb, cbb, crb)
+            self._store(self._dpb_y, self._dpb_c, [lanes[k] for k in keep],
+                        [slots[k] for k in keep], planes)
             dispatch_s += time.perf_counter() - t0
             for i in live:
                 self.decoders[i].stats.device_dispatch_s += \
@@ -272,15 +388,24 @@ class BatchDecoder:
         return f
 
 
-def decode_batch_lockstep(abis: list[dict], dpbs: list[tuple], **kw):
+def decode_batch_lockstep(abis: list[dict], dpbs: list[tuple], mesh=None,
+                          **kw):
     """One lockstep reconstruction step over a stream batch.
 
     abis: per-stream host ABIs (same geometry); dpbs: per-stream DPB pairs
-    (dpb_y [S, 4, ...], dpb_c [S, 2, ...]) on one device; kw: the
-    keyword arguments of decode_frames_batch_fn other than `inter`.
-    Returns (y, cb, cr) uint8 [B, H, W] / [B, H/2, W/2]."""
-    dpb_y = torch.stack([d[0] for d in dpbs])
-    dpb_c = torch.stack([d[1] for d in dpbs])
-    return decode_frames_batch_fn(
-        upload_batch(abis, dpb_y.device, dpb_y.shape[1]), dpb_y, dpb_c,
-        inter=_inter(abis), **kw)
+    (dpb_y [S, 4, ...], dpb_c [S, 2, ...]); mesh: the devices of the
+    shards (parallel.sharding; default: the first DPB's device alone);
+    kw: the keyword arguments of decode_frames_batch_fn other than
+    `inter`.  Each shard's lanes are uploaded dense to its device and
+    decoded there.  Returns (y, cb, cr) uint8 [B, H, W] / [B, H/2, W/2]
+    on the first shard's device."""
+    mesh = make_stream_mesh([dpbs[0][0].device] if mesh is None else mesh)
+    step = sharded_decode_fn(mesh, len(abis), **kw)
+    batches, dpb_y, dpb_c = [], [], []
+    for (s0, s1), dev in zip(shard_bounds(mesh, len(abis)), mesh):
+        dpb_y.append(torch.stack([d[0] for d in dpbs[s0:s1]]).to(dev))
+        dpb_c.append(torch.stack([d[1] for d in dpbs[s0:s1]]).to(dev))
+        batches.append(upload_batch(abis[s0:s1], dev, dpb_y[-1].shape[1]))
+    planes = step(batches, dpb_y, dpb_c, _inter(abis))
+    return tuple(torch.cat([p[k].to(mesh[0]) for p in planes])
+                 for k in range(3))

@@ -82,6 +82,13 @@ def trace_frame_abi(fh, abi, mb_w: int, mb_h: int, frame_idx: int) -> None:
         fh.write(json.dumps(rec) + "\n")
 
 
+def trace_upload(fh, frame_idx: int, mode: str, nbytes: int) -> None:
+    """One JSONL record per picture: how its ABI went to the device
+    ("wire" or "dense", models.pipeline.UPLOADS) and how many bytes."""
+    fh.write(json.dumps({"t": "upload", "frame": frame_idx, "mode": mode,
+                         "bytes": nbytes}) + "\n")
+
+
 def trace_se_target(explicit=None):
     """Sink for the syntax-element-level trace (``--trace-se`` /
     ARROW_H264_TRACE_SE): the JM trace_dec.txt analog."""

@@ -12,7 +12,8 @@ Phases (each prints a line; any failure exits non-zero):
               also on a random intra ABI of every MB kind over random
               init planes (the JSON keeps the synthetic_abi numbers);
               each kernel's device launches in one wrapper call, counted
-              by torch.profiler (every kernel must launch once per call)
+              by torch.profiler after phase 10 (every kernel must launch
+              once per call)
   4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
               1080p input, every output equal to the plain version; all
               four at B = 4 (four 1080p frames in one launch each), exact
@@ -80,8 +81,33 @@ Phases (each prints a line; any failure exits non-zero):
               MD5s, exit 0), `info` (exit 0) and `decode --ref` against a
               reference with one byte flipped (exit 1); (d) frames/s of
               every stream and batch, log lines `[features]`
-Then one JSON line of per-kernel results, the nvidia-smi line, and the
-last line {"ok": true, "device": {...}}.
+ 10. wire     the compact wire upload (ops/wire.py, the default of every
+              decode above; phases 7-9 also check that every round went
+              through it, but the rounds with a lane of dense per-cell
+              weights, which go dense) and the stream sharding
+              (parallel/sharding.py): (a) for every picture of the smoke
+              stream, upload_wire on the card equal (torch.equal) to the
+              dense upload_batch for every key, refid by its equality
+              structure, alone and as one merged batch of all six; (b)
+              the wire's bytes a picture on the four 1080p streams
+              against the dense ABI's, pack_wire_raw's host ms a picture,
+              and on the card the wire buffer's copy plus unpack_wire
+              against the dense ABI's copies, at B = 1, 8 and 32 (CUDA
+              events); (c) Decoder(upload="dense") on the smoke
+              stream, MD5-exact, and frames/s of the single stream and
+              of BatchDecoder at B = 1, 8 and 32 with each order and
+              upload in turns (wire, dense, dense, wire), with the main
+              thread's upload ms a round; (d) BatchDecoder(8,
+              mesh=("cuda:0",) * 2) over the four 1080p streams with each
+              order: MD5-exact, the order's intra and deblock kernels
+              launched twice a round (once a shard), K3/K4 twice a round
+              with an inter lane; frames/s against one shard.  Log lines
+              `[wire]`.
+Then one torch.profiler session counts the device launches of each
+kernel's wrapper call and the kernels of one unpack_wire call at each B
+of phase 10 with their summed device time (`[kernels]`, `[wire]`
+lines), then one JSON line of per-kernel results, the nvidia-smi line,
+and the last line {"ok": true, "device": {...}}.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 work of the timed call: the larger of its bytes over 3.35 TB/s and its
@@ -139,7 +165,8 @@ BATCH_STREAMS = [STREAM] + [STREAM.parent / f"batch_1080p_s{i}.264"
 FIELD_STREAMS = [STREAM.parent / f"field_1080i_s{i}.264" for i in (0, 1)]
 # the committed feature streams (tools/feature_streams.py) and the lanes
 # of the features phase's BatchDecoder runs: name -> (lanes, rounds,
-# rounds with an inter lane)
+# rounds with an inter lane, rounds uploaded dense: those with a lane of
+# dense per-cell weights)
 FEATURE_STREAMS = (
     "feat_lossless_qcif", "feat_lossless_164x132", "feat_cif_cfg2",
     "feat_cif_cfg3", "feat_cif_cfg4", "feat_w512", "feat_w976",
@@ -150,14 +177,14 @@ FEATURE_STREAMS = (
     "feat_fmo1080_interleave", "feat_fmo1080_explicit", "feat_conceal64",
     "feat_conceal1080", "feat_qcif_cfg2", "feat_wp18", "feat_wp_table")
 FEATURE_BATCHES = {
-    "dense weights": (("feat_wp18", "feat_wp18"), 3, 2),
-    "dense beside table weights": (("feat_wp18", "feat_wp_table"), 3, 2),
+    "dense weights": (("feat_wp18", "feat_wp18"), 3, 2, 2),
+    "dense beside table weights": (("feat_wp18", "feat_wp_table"), 3, 2, 2),
     "CIF configs 2-4": (("feat_cif_cfg2", "feat_cif_cfg3", "feat_cif_cfg4"),
-                        4, 3),
+                        4, 3, 0),
     "1080p FMO": (("feat_fmo1080_interleave", "feat_fmo1080_explicit"),
-                  3, 2),
-    "lossless QCIF": (("feat_lossless_qcif", "feat_lossless_qcif"), 5, 4),
-    "DPB of 2 and 5 slots": (("feat_qcif_cfg2", "batch_qcif_s3"), 5, 4),
+                  3, 2, 0),
+    "lossless QCIF": (("feat_lossless_qcif", "feat_lossless_qcif"), 5, 4, 0),
+    "DPB of 2 and 5 slots": (("feat_qcif_cfg2", "batch_qcif_s3"), 5, 4, 0),
 }
 BATCH_LANES = 8                # lanes of the exactness runs
 FIELD_LANES = 4                # lanes of the 1080i batch runs
@@ -171,6 +198,8 @@ FLUSH_BYTES = 128 << 20        # written before each cold launch (L2 50 MB)
 REPEATS = 50                   # exactness loop of the wavefront kernels
 B4 = 4                         # streams of the batched wavefront case
 B8 = 8                         # streams of the batched MC case
+WIRE_BATCHES = (1, 8, 32)      # lanes of the wire phase's upload timings
+SHARDS = 2                     # shards on the one card of the wire phase
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
@@ -184,8 +213,10 @@ def cuda_ms(fn, reps: int, rounds: int = 1, queued: bool = False) -> float:
     CUDA events, after one warm-up call.  queued: each round is enqueued
     behind a device sleep, so the events time the calls' kernels back to
     back; a round the host did not finish enqueueing within the sleep is
-    made again with twice the sleep.  Without it this is the calls' wall
-    time (for host-bound plain versions, the host's)."""
+    made again with twice the sleep, up to 2**8 times SLEEP_CYCLES (a
+    call that waits for the device is never done first: that exits).
+    Without it this is the calls' wall time (for host-bound plain
+    versions, the host's)."""
     fn()
     torch.cuda.synchronize()
     times, sleep = [], SLEEP_CYCLES
@@ -202,6 +233,10 @@ def cuda_ms(fn, reps: int, rounds: int = 1, queued: bool = False) -> float:
         end.synchronize()
         if late:
             sleep *= 2
+            if sleep > SLEEP_CYCLES << 8:
+                sys.exit(f"cuda_ms: {reps} calls were not enqueued within "
+                         f"{sleep // 2} cycles of device sleep; a call "
+                         "waits for the device")
         else:
             times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
@@ -318,21 +353,39 @@ def stream_mc_inputs(data: bytes, dev) -> dict:
     return found
 
 
-def device_launches(calls: dict) -> dict:
+def device_launches(calls: dict, regions: dict) -> dict:
     """{key: kernels named `key`_kernel that one call of calls[key] puts
-    on the card}, from the device activities of one torch.profiler
-    session that makes each call once."""
-    from torch.profiler import ProfilerActivity, profile
+    on the card} and {name: (kernels that one call of regions[name] puts
+    on the card, whatever their names, and their summed device ms)}, from
+    the device activities of one torch.profiler session that makes each
+    call once (a region's under a record_function range of its name,
+    whose operators' kernels it counts)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for call in calls.values():
             call()
             torch.cuda.synchronize()
+        for name, call in regions.items():
+            with record_function(name):
+                call()
+            torch.cuda.synchronize()
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {key: sum(e.count for e in dev_events if f"{key}_kernel" in e.key)
-            for key in calls}
+    out = {key: sum(e.count for e in dev_events if f"{key}_kernel" in e.key)
+           for key in calls}
+
+    def kernels_under(e):
+        return list(e.kernels) + [k for c in e.cpu_children
+                                  for k in kernels_under(c)]
+
+    for name in regions:
+        ks = [k for e in prof.events() if e.name == name
+              and e.device_type == torch.autograd.DeviceType.CPU
+              for k in kernels_under(e)]
+        out[name] = (len(ks), sum(k.duration for k in ks) / 1e3)
+    return out
 
 
 def compare(name: str, got, want) -> int:
@@ -413,6 +466,10 @@ def batch_phase(paths: dict, smi: str) -> dict:
         if bd.rounds != max(len(golden[i % len(data)]) for i in range(n)
                             if i != corrupt):
             sys.exit(f"{what}: {bd.rounds} rounds")
+        if (bd.wire_rounds, bd.dense_rounds) != (bd.rounds, 0):
+            sys.exit(f"{what}: {bd.wire_rounds} wire and {bd.dense_rounds} "
+                     f"dense rounds of {bd.rounds}; every round ships the "
+                     "wire")
         return bd, outs, wall, got
 
     def report(what, bd, wall):
@@ -547,11 +604,13 @@ def fields_phase(paths: dict, smi: str) -> dict:
                          "the golden")
         rounds = max(2 * len(m["structure"]) for m in lanes)
         inter = rounds - 2                      # all but the I pair
-        if (bd.rounds, bd.inter_rounds) != (rounds, inter) or \
+        if (bd.rounds, bd.inter_rounds, bd.wire_rounds, bd.dense_rounds) \
+                != (rounds, inter, rounds, 0) or \
                 got != want(order, bd.rounds, bd.inter_rounds):
             sys.exit(f"fields batch {order}: launches {got} in {bd.rounds} "
-                     f"rounds ({bd.inter_rounds} inter), expected "
-                     f"{want(order, rounds, inter)}")
+                     f"rounds ({bd.inter_rounds} inter, {bd.wire_rounds} "
+                     f"wire, {bd.dense_rounds} dense), expected "
+                     f"{want(order, rounds, inter)} in {rounds} wire rounds")
         n = sum(len(f) for f in outs)
         log("fields", f"BatchDecoder({FIELD_LANES}) order={order}: every lane "
             f"MD5 == golden; launches {got} in {bd.rounds} rounds "
@@ -620,7 +679,7 @@ def features_phase(paths: dict, smi: str) -> dict:
         launches[order] = total
 
     # (b) lockstep lanes, one launch a round
-    for what, (names, rounds, inter) in FEATURE_BATCHES.items():
+    for what, (names, rounds, inter, dense) in FEATURE_BATCHES.items():
         datas = [(data / f"{n}.264").read_bytes() for n in names]
         golden = [json.loads((data / f"{n}.json").read_text())["md5"]
                   for n in names]
@@ -641,15 +700,19 @@ def features_phase(paths: dict, smi: str) -> dict:
                         for f in frames] != md5:
                     sys.exit(f"features batch {what} {order}: lane {i} "
                              f"({names[i]}) MD5s differ")
-            if (bd.rounds, bd.inter_rounds) != (rounds, inter) or \
-                    got != want(order, rounds, inter):
+            if (bd.rounds, bd.inter_rounds, bd.dense_rounds,
+                    bd.wire_rounds) != (rounds, inter, dense, rounds - dense) \
+                    or got != want(order, rounds, inter):
                 sys.exit(f"features batch {what} {order}: launches {got} in "
-                         f"{bd.rounds} rounds ({bd.inter_rounds} inter), "
-                         f"expected {want(order, rounds, inter)}")
+                         f"{bd.rounds} rounds ({bd.inter_rounds} inter, "
+                         f"{bd.dense_rounds} dense, {bd.wire_rounds} wire), "
+                         f"expected {want(order, rounds, inter)} in {rounds} "
+                         f"rounds, {dense} of them dense")
             n = sum(len(f) for f in outs)
             log("features", f"BatchDecoder({len(names)}) {what} {names} "
                 f"order={order}: every lane MD5 == expected; launches {got} "
-                f"in {bd.rounds} rounds ({bd.inter_rounds} inter); {n} "
+                f"in {bd.rounds} rounds ({bd.inter_rounds} inter, "
+                f"{bd.dense_rounds} dense); {n} "
                 f"frames in {wall:.4f} s, {n / wall:.3f} frames/s of the "
                 f"batch; on {smi}")
 
@@ -691,6 +754,219 @@ def features_phase(paths: dict, smi: str) -> dict:
         log("features", f"CLI info: exit 0; decode --ref with one byte "
             f"flipped: exit 1 ({r.stderr.strip()!r})")
     return launches
+
+
+def stream_abis(data: bytes, dev) -> tuple[list, int]:
+    """(host ABI of every picture of a decode of `data` on `dev`, the
+    stream's DPB slots).  The loop is Decoder.decode_annexb's; the ABIs
+    stay referenced, so the parse buffers they view are not recycled."""
+    from arrow_h264_tpu_torch.api import Decoder
+    dec = Decoder(device=dev)
+    abis = []
+    for pic, poc in dec.parse_pictures(data):
+        abi = dec.pack_abi(pic, poc)
+        pipe = dec._pipeline(pic.sps, pic.pps)
+        abis.append(abi)
+        planes = pipe.decode_frame(abi)
+        for _ in dec.commit(pic, poc, *planes, pipe.n_slots, pipe.store_ref):
+            pass
+    return abis, pipe.n_slots
+
+
+def check_abi(what: str, got: dict, want: dict) -> None:
+    """The wire's device ABI against the dense upload's: the same keys,
+    every tensor torch.equal but refid, which must map one to one onto
+    the dense refid in each lane (ops.wire.unpack_wire ships the slot)."""
+    if set(got) != set(want):
+        sys.exit(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape or g.device != w.device:
+            sys.exit(f"{what} {k}: {g.dtype} {tuple(g.shape)} {g.device} "
+                     f"!= {w.dtype} {tuple(w.shape)} {w.device}")
+        if k != "refid":
+            if not torch.equal(g, w):
+                sys.exit(f"{what} {k}: the wire's tensor differs")
+            continue
+        for i in range(w.shape[0]):
+            pairs = torch.unique(torch.stack([w[i].flatten(),
+                                              g[i].flatten()]), dim=1)
+            if not (len(torch.unique(pairs[0])) == pairs.shape[1]
+                    == len(torch.unique(pairs[1]))) or \
+                    not torch.equal(g[i] < 0, w[i] < 0):
+                sys.exit(f"{what} refid, lane {i}: not one to one with the "
+                         "dense refid")
+
+
+def wire_phase(paths: dict, smi: str) -> dict:
+    """The wire phase (module docstring); returns {"unpack_wire B=...":
+    one call of unpack_wire on the card at that B} for the profiler
+    session."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.models.pipeline import (
+        ABI_DEVICE_KEYS, upload_batch, upload_nbytes, upload_wire,
+        wire_staging,
+    )
+    from arrow_h264_tpu_torch.ops import kernels
+    from arrow_h264_tpu_torch.ops.transforms import COEFF_KEYS
+    from arrow_h264_tpu_torch.ops.wire import (
+        emit_wire, merge_specs, pack_wire_raw, unpack_wire, wire_total,
+    )
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    dev = torch.device("cuda")
+    n = MB_W * MB_H
+    data = [p.read_bytes() for p in BATCH_STREAMS]
+    golden = [json.loads(p.with_suffix(".json").read_text())["md5"]
+              for p in BATCH_STREAMS]
+    streams = [stream_abis(d, dev) for d in data]
+
+    # (a) every picture of the smoke stream, alone and as one batch
+    smoke, n_slots = streams[0]
+    packs = [pack_wire_raw(a, MB_W, MB_H) for a in smoke]
+    for i, (a, (raw, spec)) in enumerate(zip(smoke, packs)):
+        check_abi(f"wire smoke picture {i}",
+                  upload_wire([(raw, spec)], spec, MB_W, MB_H, dev, n_slots),
+                  upload_batch([a], dev, n_slots))
+    target = merge_specs([sp for _, sp in packs])
+    check_abi(f"wire smoke B={len(smoke)}",
+              upload_wire(packs, target, MB_W, MB_H, dev, n_slots),
+              upload_batch(smoke, dev, n_slots))
+    log("wire", f"every picture of {STREAM.name}: upload_wire on the card "
+        f"== upload_batch for every key (refid one to one), alone and as "
+        f"one batch of {len(smoke)}")
+
+    # (b) bytes, the host pack, and the device side of each upload
+    wire_b, dense_b, pack_s = [], [], []
+    for abis, slots in streams:
+        for a in abis:
+            t = time.perf_counter()
+            raw, spec = pack_wire_raw(a, MB_W, MB_H)
+            pack_s.append(time.perf_counter() - t)
+            wire_b.append(wire_total(spec, n))
+            dense_b.append(upload_nbytes(upload_batch([a], dev, slots)))
+    mean_w, mean_d = statistics.mean(wire_b), statistics.mean(dense_b)
+    log("wire", f"bytes a 1080p picture over the {len(wire_b)} pictures of "
+        f"the four streams: wire mean {mean_w:.0f} (min {min(wire_b)}, max "
+        f"{max(wire_b)}), dense mean {mean_d:.0f} (min {min(dense_b)}, max "
+        f"{max(dense_b)}), {mean_d / mean_w:.2f}x; pack_wire_raw {1e3 * statistics.mean(pack_s):.3f} ms a picture "
+        f"(min {1e3 * min(pack_s):.3f}, max {1e3 * max(pack_s):.3f}), one "
+        f"host thread; on {smi}")
+    regions = {}
+    for B in WIRE_BATCHES:
+        # round 1 of B lanes cycling the four streams (P pictures)
+        abis = [streams[i % len(streams)][0][1] for i in range(B)]
+        packs = [pack_wire_raw(a, MB_W, MB_H) for a in abis]
+        target = merge_specs([sp for _, sp in packs])
+        buf = wire_staging(B, wire_total(target, n), dev)
+        for row, (raw, spec) in zip(buf.numpy(), packs):
+            emit_wire(raw, spec, target, n, out=row)
+        dbuf = buf.to(dev)
+        check_abi(f"wire B={B}", unpack_wire(dbuf, MB_W, MB_H, target),
+                  upload_batch(abis, dev, n_slots))
+        # unqueued: these copies could not be queued behind a device sleep
+        # (cuda_ms exited), so each figure is the longer of a call's host
+        # enqueue and its device time; unpack_wire's kernels' own device
+        # time comes from the profiler session at the end
+        copy_ms = cuda_ms(lambda: buf.to(dev, non_blocking=True),
+                          KERNEL_REPS, ROUNDS)
+        call = partial(unpack_wire, dbuf, MB_W, MB_H, target)
+        unpack_ms = cuda_ms(call, KERNEL_REPS, ROUNDS)
+        regions[f"unpack_wire B={B}"] = call
+        staged = [torch.from_numpy(np.stack(
+            [np.asarray(a[k]) for a in abis]).astype(np.int32)).pin_memory()
+            for k in ABI_DEVICE_KEYS
+            if k not in COEFF_KEYS or any(np.asarray(a[k]).any()
+                                          for a in abis)]
+        dense_ms = cuda_ms(lambda: [t.to(dev, non_blocking=True)
+                                    for t in staged], KERNEL_REPS, ROUNDS)
+        log("wire", f"B={B} (round 1 of lanes cycling the four streams): "
+            f"wire {buf.numel()} bytes, copy {copy_ms:.4f} ms + unpack_wire "
+            f"{unpack_ms:.4f} ms = {copy_ms + unpack_ms:.4f} ms; dense "
+            f"{nbytes(*staged)} bytes in {len(staged)} copies, "
+            f"{dense_ms:.4f} ms (CUDA events, unqueued: a call's host "
+            f"enqueue or device time, the longer); on {smi}")
+        del staged
+
+    # (c) frames/s, wire against dense, in turns
+    def single(order, upload):
+        frames, wall, up = 0, 0.0, 0
+        for d, md5 in zip(data, golden):
+            dec = Decoder(device="cuda", order=order, upload=upload)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = [hashlib.md5(f.planar()).hexdigest()
+                   for f in dec.decode_annexb(d)]
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t
+            if got != md5:
+                sys.exit(f"wire single {order} upload={upload}: MD5s differ "
+                         "from the golden")
+            frames += len(got)
+            up += dec.stats.upload_bytes
+        return (f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} "
+                f"frames/s, {up / frames:.0f} upload bytes a frame")
+
+    def batch(B, order, upload, mesh=None):
+        datas = [data[i % len(data)] for i in range(B)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with BatchDecoder(B, device="cuda", mesh=mesh, order=order,
+                          upload=upload) as bd:
+            outs = bd.decode(datas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        what = f"wire BatchDecoder({B}) order={order} upload={upload}" + (
+            "" if mesh is None else f" mesh={len(mesh)} shards")
+        for i, frames in enumerate(outs):
+            if bd.errors[i] is not None or \
+                    [hashlib.md5(f.planar()).hexdigest() for f in frames] \
+                    != golden[i % len(data)]:
+                sys.exit(f"{what}: lane {i} failed or differs from the "
+                         f"golden: {bd.errors[i]!r}")
+        k = 1 if mesh is None else len(mesh)
+        intra, deblock, *mc = paths[order]
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update({intra: k * bd.rounds, deblock: k * bd.rounds,
+                     **dict.fromkeys(mc, k * bd.inter_rounds)})
+        rounds = (bd.wire_rounds, bd.dense_rounds)
+        if dict(kernels.LAUNCHES) != want or rounds != (
+                (bd.rounds, 0) if upload == "wire" else (0, bd.rounds)):
+            sys.exit(f"{what}: launches {dict(kernels.LAUNCHES)}, expected "
+                     f"{want}; {rounds} wire/dense rounds of {bd.rounds}")
+        frames = sum(s["frames"] for s in bd.stats)
+        parse_s = sum(s["host_parse_s"] for s in bd.stats)
+        return (f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} "
+                f"frames/s of the batch; main thread's upload "
+                f"{1e3 * bd.upload_s / bd.rounds:.3f} ms a round; lanes' "
+                f"host_parse_s (parse and pack) {1e3 * parse_s / frames:.3f}"
+                f" ms a frame; "
+                f"{sum(s['upload_bytes'] for s in bd.stats) / frames:.0f} "
+                f"upload bytes a frame; launches {dict(kernels.LAUNCHES)} in "
+                f"{bd.rounds} rounds")
+
+    for order in paths:
+        single(order, "wire")                    # warm-up
+        for upload in ("wire", "dense", "dense", "wire"):
+            log("wire", f"single-stream Decoder order={order} upload="
+                f"{upload} over the four streams: {single(order, upload)}; "
+                f"on {smi}")
+        for B in WIRE_BATCHES:
+            batch(B, order, "wire")              # warm-up
+            for upload in ("wire", "dense", "dense", "wire"):
+                log("wire", f"BatchDecoder({B}) order={order} upload="
+                    f"{upload}: {batch(B, order, upload)}; on {smi}")
+
+    # (d) two shards on the one card against one shard, in turns
+    mesh = (dev,) * SHARDS
+    for order in paths:
+        batch(BATCH_LANES, order, "wire", mesh)  # warm-up
+        for shards in (None, mesh, mesh, None):
+            log("wire", f"BatchDecoder({BATCH_LANES}) order={order} "
+                f"{1 if shards is None else SHARDS} shard(s) on one card: "
+                f"every lane MD5 == golden; "
+                f"{batch(BATCH_LANES, order, 'wire', shards)}; on {smi}")
+    return regions
 
 
 def main() -> None:
@@ -1011,14 +1287,6 @@ def main() -> None:
             torch.zeros_like(mv) + frac, torch.where(rs >= 0, one_slot, rs))
     del dpbs
 
-    # device launches per wrapper call: every kernel must launch once
-    for key, n_dev in device_launches(calls).items():
-        results[key]["device_launches"] = n_dev
-        log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
-            "per wrapper call")
-        if n_dev != 1:
-            sys.exit(f"{key}: {n_dev} device launches per call, not 1")
-
     # ---- the main paths: decode the committed 1080p High stream with each
     # order of the intra and deblock kernels
     golden = json.loads(STREAM.with_suffix(".json").read_text())
@@ -1064,6 +1332,22 @@ def main() -> None:
     batch_launches = batch_phase(paths, smi)
     field_launches = fields_phase(paths, smi)
     feature_launches = features_phase(paths, smi)
+    regions = wire_phase(paths, smi)
+
+    # device launches per wrapper call (every kernel must launch once) and
+    # per unpack_wire call, in the process's one profiler session
+    counted = device_launches(calls, regions)
+    for key in results:
+        n_dev = results[key]["device_launches"] = counted[key]
+        log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
+            "per wrapper call")
+        if n_dev != 1:
+            sys.exit(f"{key}: {n_dev} device launches per call, not 1")
+    for name in regions:
+        k, ms = counted[name]
+        log("wire", f"{name} (round 1 of lanes cycling the four streams): "
+            f"{k} device launches per call, {ms:.4f} ms of kernel time "
+            f"summed (torch.profiler); on {smi}")
 
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):

@@ -168,8 +168,8 @@ def test_trace_se_cpp_matches_python(h264ref, tmp_path, cfg):
 def test_traces_and_sei_match_jax(h264ref, tmp_path):
     """The port's JSONL trace and SE log are byte-equal to the JAX
     Decoder's for one stream (config 4: CABAC, B pictures, weighted
-    prediction), and its SEI messages equal the JAX package's field by
-    field."""
+    prediction), but for the port's own record of each picture's upload,
+    and its SEI messages equal the JAX package's field by field."""
     data = open(_encode(tmp_path, "j", 64, 64, 3, 21,
                         streams.CONFIG_OPTS[4]), "rb").read()
     logs, seis = {}, {}
@@ -181,6 +181,13 @@ def test_traces_and_sei_match_jax(h264ref, tmp_path):
         logs[name] = (t.getvalue(), se.getvalue(), frames)
         seis[name] = [(m.payload_type, m.payload, m.fields)
                       for m in dec.sei_messages]
+    trace, se, frames = logs["port"]
+    lines = trace.splitlines(keepends=True)
+    ups = [json.loads(ln) for ln in lines if '"t": "upload"' in ln]
+    assert [(r["frame"], r["mode"]) for r in ups] == \
+        [(i, "wire") for i in range(len(frames))]
+    logs["port"] = ("".join(ln for ln in lines if '"t": "upload"' not in ln),
+                    se, frames)
     assert logs["port"][0].count("\n") > 50
     assert logs["port"][1].count("\n") > 1000
     assert logs["port"] == logs["jax"]

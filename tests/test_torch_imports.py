@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
               "host.centropy", "dpb",
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
               "__main__", "conceal", "trace", "bitstream.sei",
-              "bitstream.fmo", "parallel.batch"):
+              "bitstream.fmo", "parallel.batch", "ops.wire",
+              "parallel.sharding"):
         assert f"arrow_h264_tpu_torch.{m}" in out["mods"]
 
 

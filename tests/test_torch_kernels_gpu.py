@@ -550,3 +550,66 @@ def test_cli_cuda(dev, tmp_path, order):
     (tmp_path / "ref.yuv").write_bytes(flipped)
     assert cli("decode", str(SMOKE), str(out), "--order", order, "--ref",
                str(tmp_path / "ref.yuv")) == 1
+
+
+def test_wire_upload_cuda(dev, monkeypatch):
+    """upload_wire on the card at B = 4 (four pictures of a QCIF lane, I,
+    P and B, under one merged spec) gives upload_batch's tensors: every
+    key equal, refid by its equality structure (ops.wire.unpack_wire)."""
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.models import pipeline
+    from arrow_h264_tpu_torch.models.pipeline import (
+        upload_batch, upload_wire,
+    )
+    from arrow_h264_tpu_torch.ops.wire import merge_specs, pack_wire_raw
+    abis = []
+    orig = pipeline.DevicePipeline.decode_frame
+
+    def spy(self, abi):
+        abis.append({k: v.copy() for k, v in abi.items()
+                     if isinstance(v, np.ndarray)})
+        return orig(self, abi)
+
+    monkeypatch.setattr(pipeline.DevicePipeline, "decode_frame", spy)
+    list(Decoder(device=dev).decode_annexb(QCIF_LANES[2].read_bytes()))
+    abis = abis[:4]
+    assert any((a["kind"] >= 4).any() for a in abis)
+    mb_w, mb_h = 11, 9
+    packs = [pack_wire_raw(a, mb_w, mb_h) for a in abis]
+    target = merge_specs([s for _, s in packs])
+    got = upload_wire(packs, target, mb_w, mb_h, dev, 4)
+    want = upload_batch(abis, dev, 4)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.device == w.device and g.dtype == w.dtype, k
+        if k == "refid":
+            assert torch.equal(g < 0, w < 0)
+            gf, wf = g.reshape(4, -1), w.reshape(4, -1)
+            assert torch.equal(gf[:, :, None] == gf[:, None, :128],
+                               wf[:, :, None] == wf[:, None, :128])
+        else:
+            assert torch.equal(g, w), k
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_batch_decoder_cuda_two_shards(dev, order):
+    """BatchDecoder(4) with two shards on one card: every lane equal to
+    its golden hashes, every round through the wire, and the order's
+    intra and deblock kernels launched twice a round (once a shard)."""
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    datas = [p.read_bytes() for p in QCIF_LANES]
+    kernels.reset_launches()
+    with BatchDecoder(len(datas), device=dev, mesh=(dev, dev),
+                      order=order) as bd:
+        outs = bd.decode(datas)
+    assert bd.errors == [None] * len(datas)
+    assert (bd.rounds, bd.wire_rounds, bd.dense_rounds) == (5, 5, 0)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(ORDERS[order], 2 * bd.rounds))
+    want.update(mc_luma=2 * bd.inter_rounds, mc_chroma=2 * bd.inter_rounds)
+    assert kernels.LAUNCHES == want
+    for p, frames in zip(QCIF_LANES, outs):
+        meta = json.loads(p.with_suffix(".json").read_text())
+        assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
+            == meta["md5"], p.name

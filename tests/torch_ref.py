@@ -120,19 +120,30 @@ def encode(tmp_path, cfg, n_frames: int = 3, seed: int = 7,
     return path
 
 
+def _copy_abi(abi) -> dict:
+    """A copy of a host ABI whose arrays (and dicts of arrays, such as the
+    row hints) own their memory."""
+    def cp(v):
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if isinstance(v, dict):
+            return {k: cp(x) for k, x in v.items()}
+        return v
+    return {k: cp(v) for k, v in abi.items()}
+
+
 def decode_port(path: str, capture: list | None = None,
-                order: str = "phase") -> np.ndarray:
+                order: str = "phase", conceal: bool = False) -> np.ndarray:
     """Decode with the port on the CPU -> [frames, bytes] uint8.  With
     `capture`, append (host ABI copy, pipeline) for each decoded picture,
     the DPB as it was before that picture was stored."""
-    dec = Decoder(device="cpu", order=order)
+    dec = Decoder(device="cpu", order=order, conceal=conceal)
     if capture is not None:
         orig = tpipeline.DevicePipeline.decode_frame
 
         def spy(self, abi):
-            capture.append(({k: (v.copy() if isinstance(v, np.ndarray)
-                                 else v) for k, v in abi.items()},
-                            self, self.dpb_y.clone(), self.dpb_c.clone()))
+            capture.append((_copy_abi(abi), self, self.dpb_y.clone(),
+                            self.dpb_c.clone()))
             return orig(self, abi)
 
         tpipeline.DevicePipeline.decode_frame = spy
