@@ -103,6 +103,31 @@ Phases (each prints a line; any failure exits non-zero):
               launched twice a round (once a shard), K3/K4 twice a round
               with an inter lane; frames/s against one shard.  Log lines
               `[wire]`.
+ 11. conformance  the committed conformance streams
+              (tools/conformance_streams.py) through
+              tools/gpu_conformance.py's decode, each run twice (a warm-up,
+              then the run whose launches are counted), log lines
+              `[conformance]` with frames, MD5 verdict, frames/s and the
+              peak of torch.cuda.max_memory_allocated: (a) configs 1-6
+              (QCIF to 3840x2160, tests/data/conf_cN.264) each alone
+              through Decoder with each order, every frame equal to its
+              golden MD5, the order's intra and deblock kernels launched
+              once a picture and K3/K4 once a P/B picture; (b)
+              BatchDecoder(4) over the 4K lanes (conf_c5, batch_2160p_s1,
+              twice) with each order, MD5s per lane, one launch a round,
+              every round through the wire; (c) BatchDecoder(2) over the
+              720p lanes of two GOPs each (gop_720p_s0/s1: IDRs every 6
+              and 4 frames, so that a round puts an IDR lane beside a P/B
+              lane) with each order and once with upload="dense"; (d)
+              K1-K6 at 3840x2160, each against its plain version at B = 4
+              (four pictures or streams in one launch, as the 4K
+              BatchDecoder launches them) and at B = 1, timed at B = 1 as
+              in phases 3 and 5, with the byte bound and the plain
+              versions' seconds; and the chain estimate of K1, K2, K5 and K6
+              at 1080p and 4K: the kernel's ms on a one-MB-row strip of
+              the picture's width, whose MBs it walks one after another,
+              times the picture's 2 (mb_h - 1) + mb_w chain steps over
+              mb_w (an estimate, not a floor; log lines only).
 Then one torch.profiler session counts the device launches of each
 kernel's wrapper call and the kernels of one unpack_wire call at each B
 of phase 10 with their summed device time (`[kernels]`, `[wire]`
@@ -131,9 +156,14 @@ cross-parity offsets).  `launches_fields` counts each kernel's launches
 in the fields phase's main path: BatchDecoder(4) over the 1080i lanes
 with the kernel's order (8 rounds, 6 with an inter lane);
 `launches_features` in the features phase's: every feature stream through
-Decoder with the kernel's order, one after another.  The other MC
-figures (launched back to back from the host without the device sleep,
-the smoke stream's pictures, the B = 8 variants) are log lines only.
+Decoder with the kernel's order, one after another; `launches_conformance`
+in the conformance phase's: BatchDecoder(4) over the 4K lanes with the
+kernel's order (3 rounds, 2 with an inter lane).  `ms_2160p` and
+`bound_ms_2160p` are each kernel's time and bound at 3840x2160 (K2/K6
+on synthetic_abi, K3/K4 on synthetic_abi_p over 4 random references).
+The other MC figures (launched back to back from the host without the
+device sleep, the smoke stream's pictures, the B = 8 variants) are log
+lines only.
 
 A kernel's `ms` is the median over ROUNDS rounds of the mean of
 KERNEL_REPS launches, timed with CUDA events.  Each round is enqueued
@@ -200,6 +230,10 @@ B4 = 4                         # streams of the batched wavefront case
 B8 = 8                         # streams of the batched MC case
 WIRE_BATCHES = (1, 8, 32)      # lanes of the wire phase's upload timings
 SHARDS = 2                     # shards on the one card of the wire phase
+CONF_CONFIGS = (1, 2, 3, 4, 5, 6)   # the conformance phase's configs
+CONF_BATCH = 4                 # lanes of the 4K BatchDecoder
+GOP_LANES = ("gop_720p_s0", "gop_720p_s1")
+MB_W_4K, MB_H_4K = 240, 135    # 3840x2160
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
@@ -969,6 +1003,252 @@ def wire_phase(paths: dict, smi: str) -> dict:
     return regions
 
 
+def conformance_phase(paths: dict, smi: str) -> dict:
+    """The conformance phase (module docstring), parts (a)-(c); returns
+    {order: LAUNCHES of its main path's run, BatchDecoder(CONF_BATCH)
+    over the 4K lanes with that order}."""
+    from arrow_h264_tpu_torch.ops import kernels
+    from tools.gpu_conformance import (
+        check_counts, config_label, decode, lanes, report, rounds_of,
+    )
+
+    def run(label, names, order, batch, upload="wire"):
+        """Decode `names` (as a batch or alone) twice, the second time
+        with the launches counted; exits unless every frame equals its
+        golden MD5, the kernels launched once a picture (a round) and the
+        host entropy is the C++ library."""
+        decode(names, order, "cuda", batch, upload)   # warm-up
+        kernels.reset_launches()
+        r = decode(names, order, "cuda", batch, upload)
+        got = dict(kernels.LAUNCHES)
+        line = report(label, r)
+        dec = r["decoder"]
+        miss = check_counts(r, names, order, batch, upload, got)
+        if r["bad"] or miss or any(
+                d.entropy != "cpp" for d in
+                (dec.decoders if batch else [dec])):
+            sys.exit(f"conformance: {line}; {miss or 'entropy not cpp'}")
+        log("conformance", f"{line}; launches {got}; on {smi}")
+        return got
+
+    # (a) every config alone, with each order
+    for order in paths:
+        for cfg in CONF_CONFIGS:
+            run(config_label(cfg), lanes(cfg, None), order, False)
+    # (b) the 4K lanes in lockstep, with each order
+    launches = {order: run(config_label(5), lanes(5, CONF_BATCH), order,
+                           True) for order in paths}
+    # (c) the 720p lanes of two GOPs each, with each order and dense once
+    rounds, inter, mixed = rounds_of(GOP_LANES)
+    if not mixed:
+        sys.exit(f"conformance: no round of {GOP_LANES} has an IDR lane "
+                 "beside a P/B lane")
+    for order, upload in (("phase", "wire"), ("raster", "wire"),
+                          ("phase", "dense")):
+        run(f"720p GOP lanes {'+'.join(GOP_LANES)} ({rounds} rounds, an "
+            f"IDR beside a P/B lane in rounds {mixed})", list(GOP_LANES),
+            order, True, upload)
+    return launches
+
+
+def kernels_2160p(results: dict, smi: str) -> None:
+    """Part (d) of the conformance phase: K1-K6 at 3840x2160 exact against
+    their plain versions, at B = 4 as the 4K BatchDecoder launches them
+    (K1/K5 and then K2/K6 on four synthetic_abi pictures, K3/K4 on four
+    synthetic_abi_p streams over 4 random references each, also with 5 %
+    wild MVs) and at B = 1 (lane 0 of those, K1/K5 on random_intra_abi,
+    K2/K6 on synthetic_abi_p tables over random planes); adds ms_2160p
+    and bound_ms_2160p, timed at B = 1, to each kernel's result (K2/K6:
+    synthetic_abi, K3/K4: synthetic_abi_p) and logs the plain versions'
+    seconds and the chain estimates (module docstring)."""
+    from arrow_h264_tpu_torch.models.pipeline import dpb_alloc, store_ref_fn
+    from arrow_h264_tpu_torch.ops.deblock import (
+        deblock_filter_planes, deblock_tables,
+    )
+    from arrow_h264_tpu_torch.ops.inter import (
+        mc_chroma_plain, mc_luma_plain,
+    )
+    from arrow_h264_tpu_torch.ops.intra import intra_reconstruct
+    from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
+    from arrow_h264_tpu_torch.ops.kernels.deblock_raster import (
+        deblock_raster,
+    )
+    from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
+    from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
+    from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
+    from arrow_h264_tpu_torch.ops.synthetic import (
+        random_intra_abi, synthetic_batch,
+    )
+    from arrow_h264_tpu_torch.ops.transforms import (
+        make_ws_consts, residual_planes,
+    )
+    dev = torch.device("cuda")
+    ws4, ws8 = (t.to(dev) for t in make_ws_consts([[16] * 16] * 6,
+                                                  [[16] * 64] * 2))
+    intra = {"intra_phase": intra_phase, "intra_raster": intra_raster}
+    deblock = {"deblock_phase": deblock_phase,
+               "deblock_raster": deblock_raster}
+    mc = {"mc_luma": (mc_luma, mc_luma_plain),
+          "mc_chroma": (mc_chroma, mc_chroma_plain)}
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    mw, mh = MB_W_4K, MB_H_4K
+    H, W = mh * 16, mw * 16
+    shapes = ((1, H, W), (1, H // 2, W // 2), (1, H // 2, W // 2))
+
+    def rand_planes(lo, hi, dtype):
+        return tuple(torch.randint(lo, hi, s, generator=g, device=dev,
+                                   dtype=dtype) for s in shapes)
+
+    def plain(what, fn, *args):
+        """fn(*args) as uint8, its seconds logged."""
+        t = time.perf_counter()
+        out = fn(*args)
+        out = out.to(torch.uint8) if isinstance(out, torch.Tensor) \
+            else tuple(p.to(torch.uint8) for p in out)
+        torch.cuda.synchronize()
+        log("conformance", f"plain {what} 3840x2160: "
+            f"{time.perf_counter() - t:.3f} s")
+        return out
+
+    def lane0(planes):
+        return tuple(p[:1] for p in planes)
+
+    # K1/K5, then K2/K6 on K1's output with its tables: four synthetic_abi
+    # pictures in one launch, then lane 0 alone, timed
+    batch = [synthetic_batch(mw, mh, SEED + i, dev)[1] for i in range(B4)]
+    a4 = {k: torch.cat([x[k] for x in batch]) for k in batch[0]}
+    del batch
+    res4 = residual_planes(a4, mw, mh, ws4, ws8)
+    want = plain(f"intra_reconstruct B={B4}", intra_reconstruct, a4, *res4,
+                 mw, mh)
+    tables4 = deblock_tables(a4, mw, mh)
+    want_d = plain(f"deblock_filter_planes B={B4}", deblock_filter_planes,
+                   *want, tables4, mw, mh)
+    a, res = {k: v[:1] for k, v in a4.items()}, lane0(res4)
+    for key, fn in intra.items():
+        compare(f"{key} 3840x2160 B={B4}",
+                fn(a4, *res4, None, None, None, mw, mh), want)
+        call = partial(fn, a, *res, None, None, None, mw, mh)
+        compare(f"{key} 3840x2160", call(), lane0(want))
+        results[key].update(ms_2160p=kernel_ms(call),
+                            bound_ms_2160p=bound(*intra_need(a, res))[0])
+    for key, fn in deblock.items():
+        compare(f"{key} 3840x2160 B={B4}",
+                fn(*(p.clone() for p in want), tables4, mw, mh), want_d)
+    del a4, res4, tables4
+
+    # K1/K5 on a random intra ABI of every MB kind over random init planes
+    ra = {k: torch.from_numpy(v).to(dev)[None]
+          for k, v in random_intra_abi(mw, mh, SEED + 4).items()}
+    pcm = (ra["kind"].view(1, mh, mw) == 3) \
+        .repeat_interleave(16, 1).repeat_interleave(16, 2)
+    res_r = [torch.where(m, r.remainder(256), r) for r, m in zip(
+        rand_planes(-300, 300, torch.int32),
+        (pcm, pcm[:, ::2, ::2], pcm[:, ::2, ::2]))]
+    init = rand_planes(0, 256, torch.int32)
+    want_r = plain("intra_reconstruct random_intra_abi", intra_reconstruct,
+                   ra, *res_r, mw, mh, *init)
+    for key, fn in intra.items():
+        compare(f"{key} 3840x2160 random_intra_abi",
+                fn(ra, *res_r, *init, mw, mh), want_r)
+    del ra, pcm, res_r, init, want_r
+
+    # K2/K6 at B = 1, timed: on lane 0 of K1's output with its tables, and
+    # on random planes with synthetic_abi_p tables
+    _, ap = synthetic_batch(mw, mh, SEED, dev, inter=True, bi_frac=0.3)
+    planes_p, tables_p = rand_planes(96, 160, torch.uint8), \
+        deblock_tables(ap, mw, mh)
+    cases = (("synthetic_abi", lane0(want), deblock_tables(a, mw, mh),
+              lane0(want_d)),
+             ("synthetic_abi_p", planes_p, tables_p,
+              plain("deblock_filter_planes synthetic_abi_p",
+                    deblock_filter_planes, *planes_p, tables_p, mw, mh)))
+    for note, planes, tables, want_n in cases:
+        for key, fn in deblock.items():
+            compare(f"{key} 3840x2160 {note}",
+                    fn(*(p.clone() for p in planes), tables, mw, mh), want_n)
+            work = tuple(p.clone() for p in planes)
+            ms = kernel_ms(partial(fn, *work, tables, mw, mh))
+            bound_ms = bound(*deblock_need(tables, planes))[0]
+            if note == "synthetic_abi":
+                results[key].update(ms_2160p=ms, bound_ms_2160p=bound_ms)
+            log("conformance", f"{results[key]['name']} 3840x2160 {note}: "
+                f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms")
+    del want, want_d, cases, planes_p, tables_p
+
+    # K3/K4: four synthetic_abi_p streams, each over 4 random reference
+    # pictures of its own, then with 5 % wild MVs (+-512 quarter samples);
+    # then lane 0 alone, timed
+    n_slots = 4
+    rng = np.random.default_rng(SEED + 41)
+    dpbs = [dpb_alloc(mw, mh, n_slots, dev) for _ in range(B4)]
+    for dy, dc in dpbs:
+        for s in range(n_slots):
+            store_ref_fn(dy, dc, s, *(
+                torch.randint(0, 256, shp[1:], generator=g, device=dev,
+                              dtype=torch.uint8) for shp in shapes))
+    dy, dc = (torch.stack(t) for t in zip(*dpbs))
+    del dpbs
+    abis = [synthetic_batch(mw, mh, SEED + 42 + b, dev, inter=True,
+                            n_slots=n_slots, bi_frac=0.3)[0]
+            for b in range(B4)]
+    mv_h = np.stack([x["mv"] for x in abis])
+    rs = torch.from_numpy(np.stack([x["refslot"] for x in abis])).to(dev)
+    del abis
+    cvoff = torch.zeros((B4, n_slots), dtype=torch.int32, device=dev)
+    wild = rng.random(mv_h.shape[:4]) < 0.05
+    wmv = rng.integers(-512, 513, mv_h.shape).astype(np.int32)
+    for note, mvs in (("synthetic_abi_p", mv_h),
+                      ("wild mv", np.where(wild[..., None, None], wmv,
+                                           mv_h))):
+        mv = torch.from_numpy(np.ascontiguousarray(mvs)).to(dev)
+        args = {"mc_luma": (dy, mv, rs), "mc_chroma": (dc, mv, rs, cvoff)}
+        for key, (kern, plain_fn) in mc.items():
+            want = plain(f"{key} B={B4} {note}", plain_fn, *args[key],
+                         mw, mh)
+            compare(f"{key} 3840x2160 B={B4} {note}",
+                    kern(*args[key], mw, mh), want)
+            one = lane0(args[key])
+            got = kern(*one, mw, mh)
+            compare(f"{key} 3840x2160 {note}", got, want[:1])
+            ms = kernel_ms(partial(kern, *one, mw, mh))
+            bound_ms = bound(*mc_need(got, *one[1:]))[0]
+            if note == "synthetic_abi_p":
+                results[key].update(ms_2160p=ms, bound_ms_2160p=bound_ms)
+            log("conformance", f"{results[key]['name']} 3840x2160 {note}: "
+                f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms")
+    del dy, dc, mv, rs, want, args
+    for key in (*intra, *deblock):
+        r = results[key]
+        log("conformance", f"{r['name']} 3840x2160: kernel "
+            f"{r['ms_2160p']:.4f} ms ({r['ms_2160p'] / r['ms']:.3f}x its "
+            f"1080p {r['ms']:.4f}), bound {r['bound_ms_2160p']:.4f} ms")
+    log("conformance", f"3840x2160: K1-K6 equal to their plain versions at "
+        f"B = {B4} and B = 1")
+
+    # chain estimates: each wavefront kernel on a one-MB-row strip walks
+    # its MBs one after another; the picture's chain is 2 (mb_h - 1) +
+    # mb_w such steps
+    for mb_w, mb_h in ((MB_W, MB_H), (MB_W_4K, MB_H_4K)):
+        _, a = synthetic_batch(mb_w, 1, SEED + 43, dev)
+        res = residual_planes(a, mb_w, 1, ws4, ws8)
+        row = intra_phase(a, *res, None, None, None, mb_w, 1)
+        tables = deblock_tables(a, mb_w, 1)
+        steps = 2 * (mb_h - 1) + mb_w
+        est = {}
+        for key, fn in intra.items():
+            est[key] = kernel_ms(partial(fn, a, *res, None, None, None,
+                                         mb_w, 1))
+        for key, fn in deblock.items():
+            work = tuple(p.clone() for p in row)
+            est[key] = kernel_ms(partial(fn, *work, tables, mb_w, 1))
+        log("conformance", f"chain estimate at {16 * mb_w}x{16 * mb_h} "
+            f"({steps} steps; one-row strip of {mb_w} MBs ms x {steps} / "
+            f"{mb_w}): " + ", ".join(
+                f"{results[k]['name']} {v * steps / mb_w:.4f} ms (row "
+                f"{v:.4f})" for k, v in est.items()) + f"; on {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1333,6 +1613,10 @@ def main() -> None:
     field_launches = fields_phase(paths, smi)
     feature_launches = features_phase(paths, smi)
     regions = wire_phase(paths, smi)
+    t = time.perf_counter()
+    conformance_launches = conformance_phase(paths, smi)
+    kernels_2160p(results, smi)
+    log("conformance", f"phase 11 in {time.perf_counter() - t:.1f} s")
 
     # device launches per wrapper call (every kernel must launch once) and
     # per unpack_wire call, in the process's one profiler session
@@ -1358,6 +1642,7 @@ def main() -> None:
         r["launches_decode"] = launches[order][key]
         r["launches_fields"] = field_launches[order][key]
         r["launches_features"] = feature_launches[order][key]
+        r["launches_conformance"] = conformance_launches[order][key]
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -90,7 +90,9 @@ def test_cli_help_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py",
-                                    "tools/wavefront_probe.py"])
+                                    "tools/wavefront_probe.py",
+                                    "tools/gpu_conformance.py",
+                                    "tools/conformance_streams.py"])
 def test_scripts_import_only_the_port(script):
     """The port's scripts import neither jax nor arrow_h264_tpu."""
     tree = ast.parse((REPO / script).read_text())
@@ -101,6 +103,28 @@ def test_scripts_import_only_the_port(script):
     roots = {n.split(".")[0] for n in names}
     assert not roots & {"jax", "jaxlib", "arrow_h264_tpu"}, roots
     assert "arrow_h264_tpu_torch" in roots
+
+
+def test_gpu_conformance_runs_without_jax():
+    """tools/gpu_conformance.py decodes config 1 on the CPU in the clean
+    environment, and its process holds neither jax nor the JAX package in
+    sys.modules."""
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['gpu_conformance.py', '1', '--device', 'cpu']\n"
+             "try:\n"
+             "    runpy.run_path('tools/gpu_conformance.py', "
+             "run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    assert e.code == 0, e.code\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'arrow_h264_tpu')]\n"
+             "print('MODULES', bad)\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "ALL BIT-EXACT" in r.stdout
+    assert r.stdout.strip().splitlines()[-1] == "MODULES []"
 
 
 def test_lib_path_hashes_headers(tmp_path, monkeypatch):

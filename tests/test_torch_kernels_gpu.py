@@ -43,9 +43,10 @@ SMOKE = Path(__file__).resolve().parent / "data" / "smoke_1080p_high.264"
 FIELD_1080I = [SMOKE.parent / f"field_1080i_s{i}.264" for i in (0, 1)]
 # QCIF config-4 lanes of 3, 4, 5 and 3 frames (tools/smoke_stream.py)
 QCIF_LANES = [SMOKE.parent / f"batch_qcif_s{i}.264" for i in range(1, 5)]
-SIZES = [(7, 5), (22, 18)]            # ragged grid edges; CIF
-RASTER_SIZES = [(7, 5), (120, 68)]     # ragged grid edges; 1080p
-MC_SIZES = [(1, 1), (7, 5), (22, 18), (120, 68)]
+STRIP_4K = (240, 4)                    # 3840x64: the width of 3840x2160
+SIZES = [(7, 5), (22, 18), STRIP_4K]   # ragged grid edges; CIF; 4K strip
+RASTER_SIZES = [(7, 5), (120, 68), STRIP_4K]   # ... 1080p; 4K strip
+MC_SIZES = [(1, 1), (7, 5), (22, 18), (120, 68), STRIP_4K]
 MC_SLOTS = 3
 
 
@@ -179,7 +180,7 @@ ORDERS = {"phase": {"intra_phase": intra_phase,
 # edge grids (one MB wide or high, 1 x 1) and 1080p, where B = 4 streams
 # hold far more MBs than the card has resident blocks
 WAVEFRONT_GRIDS = [(1, 1, 1), (1, 6, 1), (6, 1, 1), (7, 5, 1), (120, 68, 1),
-                   (120, 68, 4)]
+                   (120, 68, 4), (*STRIP_4K, 1)]
 
 
 @pytest.mark.parametrize("mb_w,mb_h,B", WAVEFRONT_GRIDS)
@@ -613,3 +614,58 @@ def test_batch_decoder_cuda_two_shards(dev, order):
         meta = json.loads(p.with_suffix(".json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
             == meta["md5"], p.name
+
+
+# the committed conformance streams (tools/conformance_streams.py)
+CONF_4K_LANES = ["conf_c5", "batch_2160p_s1"] * 2
+GOP_LANES = ["gop_720p_s0", "gop_720p_s1"]
+
+
+def _conformance(names, order, batch, upload="wire"):
+    """tools/gpu_conformance.py's decode of the committed streams `names`
+    on the card, as the lanes of one BatchDecoder if `batch`: every frame
+    equal to its MD5s, the kernels launched as its check_counts says."""
+    from tools.gpu_conformance import check_counts, decode, report
+    kernels.reset_launches()
+    r = decode(names, order, "cuda", batch, upload)
+    assert not r["bad"], report("+".join(names), r)
+    assert check_counts(r, names, order, batch, upload,
+                        dict(kernels.LAUNCHES)) == ""
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("cfg", range(1, 7))
+def test_decoder_cuda_conformance(dev, cfg, order):
+    """Config `cfg`'s committed stream (QCIF to 3840x2160) through
+    Decoder on the card."""
+    _conformance([f"conf_c{cfg}"], order, False)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_batch_decoder_cuda_2160p(dev, order):
+    """BatchDecoder(4) over the 4K lanes (3 and 2 frames, twice)."""
+    _conformance(CONF_4K_LANES, order, True)
+
+
+@pytest.mark.parametrize("order,upload", [("phase", "wire"),
+                                          ("raster", "wire"),
+                                          ("phase", "dense")])
+def test_batch_decoder_cuda_gop_lanes(dev, order, upload):
+    """BatchDecoder(2) over the 720p lanes of two GOPs each, whose rounds
+    put a lane's mid-stream IDR beside the other's P/B picture."""
+    from tools.gpu_conformance import rounds_of
+    assert rounds_of(GOP_LANES)[2]
+    _conformance(GOP_LANES, order, True, upload)
+
+
+def test_gpu_conformance_cuda(dev):
+    """The gate's command line on config 1 with both orders, alone and as
+    BatchDecoder(2) lanes on the card: exit 0, ALL BIT-EXACT."""
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "tools/gpu_conformance.py", "1",
+                        "--order", "both", "--batch", "2"],
+                       cwd=SMOKE.parents[2], capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ALL BIT-EXACT"

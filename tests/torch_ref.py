@@ -161,3 +161,23 @@ def decode_jax(path: str) -> np.ndarray:
     return np.stack([np.frombuffer(f.planar(), np.uint8)
                      for f in JaxDecoder().decode_annexb(
                          open(path, "rb").read())])
+
+
+def strip_case(tmp_path, cfg: int, size, n_frames: int) -> tuple:
+    """(path, golden, JAX Decoder's frames) of a config-`cfg` stream of
+    `n_frames` at `size` (seed 40 + cfg, as tools/tpu_conformance.py)."""
+    path = encode(tmp_path, cfg, n_frames=n_frames, seed=40 + cfg, size=size)
+    golden, w, h = streams.golden_decode(path)
+    assert (w, h, len(golden)) == (*size, n_frames)
+    return path, golden, decode_jax(path)
+
+
+def check_strip(case: tuple, order: str | None) -> None:
+    """The JAX decode of a strip_case equals its golden (order None), or
+    the port's with `order` equals both, frame by frame."""
+    path, golden, jax_out = case
+    ours = jax_out if order is None else decode_port(path, order=order)
+    for f in range(len(golden)):
+        assert np.array_equal(ours[f], golden[f]), \
+            f"frame {f}: {int((ours[f] != golden[f]).sum())} byte diffs"
+    assert np.array_equal(ours, jax_out)
