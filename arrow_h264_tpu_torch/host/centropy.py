@@ -6,6 +6,11 @@ flags, so an edit rebuilds it and a stale build never loads.  The
 pure-Python parser in mb/parse.py remains the differential-testing
 oracle.
 
+Instruments: `gil_meter` sums the time spent inside the library's calls,
+which ctypes makes with the GIL released; ARROW_H264_STATS=1 loads the
+build with per-section counters (`read_stats`); ARROW_H264_SANITIZE=1
+the build with ASAN and UBSAN (the library parses untrusted bitstreams).
+
 `CppPictureParse` mirrors PictureParse closely enough for the decode
 loops; `pack_frame_cpp` assembles the FrameABI mostly zero-copy from the
 C++-filled arrays.
@@ -17,6 +22,8 @@ import ctypes as C
 import hashlib
 import os
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -76,39 +83,69 @@ class _SliceParams(C.Structure):
 _libs: dict = {}
 
 
-def lib_path(trace: bool = False) -> Path:
+def _variant(sanitize: bool, trace: bool, stats: bool) -> tuple[str, list]:
+    """(file name stem, g++ flags) of one build of the library."""
+    name = "libh264entropy"
+    flags = ["-O3", "-march=native", "-funroll-loops"]
+    if sanitize:
+        name += "_asan"
+        flags = ["-O1", "-g", "-fsanitize=address,undefined",
+                 "-fno-sanitize-recover=undefined"]
+    if trace:
+        name += "_trace"
+        flags.append("-DH264E_TRACE")
+    if stats:
+        name += "_stats"
+        flags.append("-DH264E_STATS")
+    return name, flags + ["-shared", "-fPIC"]
+
+
+def lib_path(sanitize: bool = False, trace: bool = False,
+             stats: bool = False) -> Path:
     """Where the library for these sources and flags is built."""
-    h = hashlib.sha256(" ".join(_flags(trace)).encode())
+    name, flags = _variant(sanitize, trace, stats)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _SRC:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    name = "libh264entropy_trace" if trace else "libh264entropy"
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def _flags(trace: bool) -> list[str]:
-    flags = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC"]
-    return flags + ["-DH264E_TRACE"] if trace else flags
-
-
-def load_lib(trace: bool = False):
+def load_lib(sanitize: bool | None = None, trace: bool = False):
     """Build (if missing) and load the host entropy library.
 
-    trace=True builds with -DH264E_TRACE: every syntax-element read is
-    recorded into a caller-provided buffer with the same records the
-    Python TracingBitReader produces (--trace-se on the C++ engine).
-    Each variant is a separate .so so they coexist; the load cache is
-    keyed by the flag.
+    sanitize=True (None: ARROW_H264_SANITIZE=1) builds with ASAN and
+    UBSAN, for a process started with the ASAN runtime preloaded
+    (LD_PRELOAD); the library parses untrusted bitstreams.  trace=True
+    builds with -DH264E_TRACE: every syntax-element read is recorded into
+    a caller-provided buffer with the same records the Python
+    TracingBitReader produces (--trace-se on the C++ engine).
+    ARROW_H264_STATS=1 builds with -DH264E_STATS (per-section counters,
+    read with read_stats()).  Both variables are read on every call, so
+    that all the module's calls in a process load the same build.  Each
+    variant is a separate .so so they coexist; the load cache is keyed by
+    the three flags.
     """
-    if trace in _libs:
-        return _libs[trace]
-    path = lib_path(trace)
+    if sanitize is None:
+        sanitize = os.environ.get("ARROW_H264_SANITIZE") == "1"
+    stats = os.environ.get("ARROW_H264_STATS") == "1"
+    key = (sanitize, trace, stats)
+    if key in _libs:
+        return _libs[key]
+    path = lib_path(*key)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", *_flags(trace), "-o", str(tmp), str(_SRC[0])],
-                       check=True, cwd=str(_CPP))
+        subprocess.run(["g++", *_variant(*key)[1], "-o", str(tmp),
+                        str(_SRC[0])], check=True, cwd=str(_CPP))
         os.replace(tmp, path)
+    if sanitize:
+        # the sanitizers' runtimes, for the library's undefined symbols
+        for rt in ("libasan.so", "libubsan.so"):
+            C.CDLL(subprocess.run(["g++", f"-print-file-name={rt}"],
+                                  capture_output=True, text=True,
+                                  check=True).stdout.strip(),
+                   mode=C.RTLD_GLOBAL)
     lib = C.CDLL(str(path))
     lib.h264e_parse_slice.restype = C.c_int
     lib.h264e_parse_slice.argtypes = [C.POINTER(_PicBuf),
@@ -144,11 +181,57 @@ def load_lib(trace: bool = False):
         C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p, C.c_long]
     lib.h264e_abi_version.restype = C.c_int
     lib.h264e_abi_version.argtypes = []
+    if stats:
+        lib.h264e_stats.restype = C.POINTER(C.c_uint64 * len(_STATS_FIELDS))
+        lib.h264e_stats.argtypes = []
     if lib.h264e_abi_version() != ABI_VERSION:
         raise RuntimeError(f"{path}: ABI version {lib.h264e_abi_version()},"
                            f" expected {ABI_VERSION}")
-    _libs[trace] = lib
+    _libs[key] = lib
     return lib
+
+
+_STATS_FIELDS = ("decisions", "bypasses", "blocks", "coeffs", "mbs",
+                 "sig_iters", "t_resid", "t_scatter", "t_motion",
+                 "t_total", "t_skip", "t_tail", "t_imb", "t_presid")
+
+
+def read_stats() -> dict:
+    """Counters of the -DH264E_STATS build (ARROW_H264_STATS=1), summed
+    since the library was loaded; t_* fields are rdtsc cycle sums.  The
+    counters are globals of the C source that every call adds to without
+    a lock, so they are exact only when one thread calls the library."""
+    vals = load_lib().h264e_stats().contents
+    return dict(zip(_STATS_FIELDS, vals))
+
+
+class gil_meter:
+    """Accounting for the time spent inside the library's calls, which
+    ctypes makes with the GIL released.
+
+    That time is the share of host work that can run on several threads
+    at once (BatchDecoder's pool); the rest of a lane's parse and pack
+    (Python and numpy) serialises on the GIL.  When `enabled` is False a
+    call costs one attribute read.  `add` sums under a lock, so the total
+    is whole when the pool's threads call at once.  `calls` splits
+    `released_s` by C function."""
+    enabled = False
+    released_s = 0.0
+    calls: dict = {}
+    _lock = threading.Lock()
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._lock:
+            cls.released_s = 0.0
+            cls.calls = {}
+
+    @classmethod
+    def add(cls, dt: float, name: str = "other") -> None:
+        if cls.enabled:
+            with cls._lock:
+                cls.released_s += dt
+                cls.calls[name] = cls.calls.get(name, 0.0) + dt
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -166,8 +249,11 @@ def scan_rows32(src2d: np.ndarray, cap: int):
     idx = np.empty(cap, np.int32)
     vals = np.empty((cap, cols), np.int16)
     ovf = C.c_int(0)
+    t0 = time.perf_counter() if gil_meter.enabled else None
     k = lib.h264e_scan_rows32(_ptr(src2d), rows, cols, _ptr(idx),
                               _ptr(vals), cap, C.byref(ovf))
+    if t0 is not None:
+        gil_meter.add(time.perf_counter() - t0, "h264e_scan_rows32")
     return int(k), idx, vals, bool(ovf.value)
 
 
@@ -187,9 +273,12 @@ def scan_blocks8(src2d: np.ndarray, cap_r: int, cap_v: int):
     vals = np.empty(cap_v, np.int8)
     nnz = C.c_long(0)
     ovf = C.c_int(0)
+    t0 = time.perf_counter() if gil_meter.enabled else None
     k = lib.h264e_scan_blocks8(_ptr(src2d), rows, cols, _ptr(idx), _ptr(bm),
                                _ptr(vals), cap_r, cap_v, C.byref(nnz),
                                C.byref(ovf))
+    if t0 is not None:
+        gil_meter.add(time.perf_counter() - t0, "h264e_scan_blocks8")
     return int(k), idx, bm, vals, int(nnz.value), bool(ovf.value)
 
 
@@ -209,10 +298,13 @@ def gather_blocks8(src2d: np.ndarray, rows_hint: np.ndarray,
     vals = np.empty(cap_v, np.int8)
     nnz = C.c_long(0)
     ovf = C.c_int(0)
+    t0 = time.perf_counter() if gil_meter.enabled else None
     k = lib.h264e_gather_blocks8(
         _ptr(src2d), rows, cols, _ptr(rows_hint), len(rows_hint),
         _ptr(idx), _ptr(bm), _ptr(vals), cap_r, cap_v,
         C.byref(nnz), C.byref(ovf))
+    if t0 is not None:
+        gil_meter.add(time.perf_counter() - t0, "h264e_gather_blocks8")
     if k < 0:
         return None
     return int(k), idx, bm, vals, int(nnz.value), bool(ovf.value)
@@ -232,9 +324,12 @@ def scan_inter(mv: np.ndarray, refidx: np.ndarray, refslot: np.ndarray,
     idx = np.empty(cap, np.int32)
     mv_nu = np.empty((cap, 64), np.int16)
     ref_nu = np.empty((cap, 64), np.int8)
+    t0 = time.perf_counter() if gil_meter.enabled else None
     k = lib.h264e_scan_inter(_ptr(mv), _ptr(refidx), _ptr(refslot), n,
                              _ptr(mv_base), _ptr(ref_base), _ptr(idx),
                              _ptr(mv_nu), _ptr(ref_nu), cap)
+    if t0 is not None:
+        gil_meter.add(time.perf_counter() - t0, "h264e_scan_inter")
     return int(k), mv_base, ref_base, idx, mv_nu, ref_nu
 
 
@@ -341,7 +436,7 @@ class CppPictureParse:
             pb.transform_8x8_mode = pps.transform_8x8_mode_flag
             pb.constrained_intra = pps.constrained_intra_pred_flag
             pb.direct_8x8_inference = sps.direct_8x8_inference_flag
-            load_lib(trace=self._trace).h264e_reset_pic(C.byref(pb))
+            self._reset()
             self._keepalive = []
             self._fmo_tabs = {}
             return
@@ -377,11 +472,19 @@ class CppPictureParse:
                 ("nzr_cdc", "nzr_cdc"), ("nzr_cnt", "nzr_cnt")):
             setattr(self.pb, name, _ptr(a[key]))
         a["_pb"] = self.pb        # pooled with the arrays it points into
-        load_lib(trace=self._trace).h264e_reset_pic(C.byref(self.pb))
+        self._reset()
         self._keepalive = []
         # FMO: NextMbAddress tables per slice_group_change_cycle (types
         # 3-5 re-derive the map per slice; static types share one entry)
         self._fmo_tabs: dict[int, np.ndarray] = {}
+
+    def _reset(self) -> None:
+        """Set the buffers' initial values (h264e_reset_pic)."""
+        lib = load_lib(trace=self._trace)
+        t0 = time.perf_counter() if gil_meter.enabled else None
+        lib.h264e_reset_pic(C.byref(self.pb))
+        if t0 is not None:
+            gil_meter.add(time.perf_counter() - t0, "h264e_reset_pic")
 
     def nz_row_hints(self) -> dict:
         """Decode-time nonzero coeff rows per wire field (views into the
@@ -469,8 +572,11 @@ class CppPictureParse:
             cap = (len(data) * 8 - r.pos) * 2 + 4096
             tr_buf = np.empty((cap, 4), np.int32)
             lib.h264e_trace_set(_ptr(tr_buf), cap)
+        t0 = time.perf_counter() if gil_meter.enabled else None
         ret = lib.h264e_parse_slice(C.byref(self.pb), C.byref(sp),
                                     data, len(data), r.pos)
+        if t0 is not None:
+            gil_meter.add(time.perf_counter() - t0, "h264e_parse_slice")
         if tr_buf is not None:
             n = int(lib.h264e_trace_count())
             lib.h264e_trace_set(None, 0)   # buffer is freed on return
@@ -503,10 +609,13 @@ class CppPictureParse:
         col_ref = np.empty((h4, w4), np.int8)
         col_uid = np.empty((h4, w4), np.int32)
         lib = load_lib(trace=self._trace)
+        t0 = time.perf_counter() if gil_meter.enabled else None
         lib.h264e_build_col(
             _ptr(a["ref_grid"]), _ptr(a["mv_grid"]), _ptr(a["slice_id"]),
             _ptr(uid_tab), n_slices, self.mb_w, self.mb_h,
             _ptr(col_mv), _ptr(col_ref), _ptr(col_uid))
+        if t0 is not None:
+            gil_meter.add(time.perf_counter() - t0, "h264e_build_col")
         return col_mv, col_ref, col_uid
 
 

@@ -34,7 +34,13 @@ Phases (each prints a line; any failure exits non-zero):
               tests/data/smoke_1080p_high.264 twice, with order="phase"
               (kernels K1-K4) and order="raster" (K5, K6, K3, K4); every
               frame's MD5 must equal the committed libavcodec golden, and
-              every kernel of each path must have launched in its decode
+              every kernel of each path must have launched in its decode.
+              Each timed decode runs with the host library's
+              GIL meter on (host/centropy.py gil_meter: the seconds spent
+              inside the C++ library's calls, which release the GIL): log
+              line `[gil]` with host_parse_s, the released seconds inside
+              it (the parse's calls) and in all, and gil_hold_pct =
+              100 (host_parse_s - released inside it) / host_parse_s
   7. batch    arrow_h264_tpu_torch.parallel.batch.BatchDecoder(8,
               device="cuda") decodes 8 lanes that cycle through the four
               committed 1080p streams (BATCH_STREAMS: 6, 6, 5 and 4
@@ -50,7 +56,16 @@ Phases (each prints a line; any failure exits non-zero):
               (32 lanes cycling the four streams), and in the same
               process the single-stream Decoder over the four streams one
               after another, with the lanes' summed host_parse_s,
-              device_dispatch_s and emit_sync_s
+              device_dispatch_s and emit_sync_s.  The timed B = 8 runs,
+              the B = 32 run and that single-stream run have the GIL
+              meter on: `[gil]` lines with the single stream's
+              gil_hold_pct and GIL-held ms a frame over the four streams,
+              and for each B the lanes' summed host_parse_s, the released
+              seconds a round, and the GIL's serial floor for a round (the
+              single stream's GIL-held ms a frame times the round's
+              frames) beside the round's wall (a pool lane's host_parse_s
+              also holds its waits for the GIL, so no share is computed
+              from it)
   8. fields   the committed 1080i PAFF streams (FIELD_STREAMS,
               tests/data/field_1080i_s0/s1.264: 120 x 34 MB fields, 4
               and 3 frames, made by tools/field_smoke.py): (b) each
@@ -240,6 +255,44 @@ CORE_OPS_S = 67e12             # H100 SXM, outside the tensor cores
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def metered(fn):
+    """fn() with the host library's GIL meter on: (fn's result, released
+    seconds, {C function: released seconds})."""
+    from arrow_h264_tpu_torch.host.centropy import gil_meter
+    gil_meter.reset()
+    gil_meter.enabled = True
+    try:
+        out = fn()
+    finally:
+        gil_meter.enabled = False
+    return out, gil_meter.released_s, dict(gil_meter.calls)
+
+
+# the library's calls made inside a decode's host_parse_s (the parse); the
+# wire pack's scans run in the upload, h264e_build_col in the DPB commit
+PARSE_CALLS = ("h264e_parse_slice", "h264e_reset_pic")
+
+
+def per_unit(calls: dict, n: int) -> dict:
+    """{C function: released ms} over n frames or rounds."""
+    return {k: round(1e3 * v / n, 4) for k, v in sorted(calls.items())}
+
+
+def gil_line(what: str, frames: int, wall: float, parse_s: float,
+             released: float, calls: dict, smi: str) -> float:
+    """Log a single-stream decode's [gil] line: gil_hold_pct = 100
+    (host_parse_s - released inside it) / host_parse_s, exact on one
+    thread.  Returns the GIL-held ms a frame."""
+    inside = sum(calls.get(k, 0.0) for k in PARSE_CALLS)
+    held_ms = 1e3 * (parse_s - inside) / frames
+    log("gil", f"{what}: {frames} frames in {wall:.4f} s; host_parse_s "
+        f"{parse_s:.4f} s, of it {inside:.4f} s inside the library's parse "
+        f"calls; gil_hold_pct {100 * (parse_s - inside) / parse_s:.2f}; GIL "
+        f"held {held_ms:.3f} ms a frame; released_s {released:.4f} s in all,"
+        f" ms a frame by call {per_unit(calls, frames)}; on {smi}")
+    return held_ms
 
 
 def cuda_ms(fn, reps: int, rounds: int = 1, queued: bool = False) -> float:
@@ -516,8 +569,11 @@ def batch_phase(paths: dict, smi: str) -> dict:
 
     run(BATCH_LANES)                             # warm-up: first-call costs
     launches = {}
+    pool = {}              # (B, order) -> (bd, wall, released, calls)
     for order in paths:
-        bd, _, wall, launches[order] = run(BATCH_LANES, order)
+        (bd, _, wall, launches[order]), *meter = metered(
+            partial(run, BATCH_LANES, order))
+        pool[BATCH_LANES, order] = bd, wall, *meter
         log("batch", f"order={order}: {BATCH_LANES} lanes MD5 == golden; "
             f"launches {launches[order]} in {bd.rounds} rounds")
         report(f"B={BATCH_LANES} order={order}", bd, wall)
@@ -530,29 +586,54 @@ def batch_phase(paths: dict, smi: str) -> dict:
     log("batch", "materialize=False: every frame a PendingFrame on the "
         "card, finalize() == golden")
     run(BATCH_WIDE)                              # warm-up at B = 32
-    bd, _, wall, _ = run(BATCH_WIDE)
+    (bd, _, wall, _), *meter = metered(partial(run, BATCH_WIDE))
+    pool[BATCH_WIDE, "phase"] = bd, wall, *meter
     report(f"B={BATCH_WIDE} order=phase", bd, wall)
 
     # the single-stream Decoder over the same four streams, one after
     # another, in the same process
-    frames, wall, stats = 0, 0.0, []
-    for d, md5 in zip(data, golden):
-        dec = Decoder(device="cuda")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        got = [hashlib.md5(f.planar()).hexdigest()
-               for f in dec.decode_annexb(d)]
-        torch.cuda.synchronize()
-        wall += time.perf_counter() - t
-        if got != md5:
-            sys.exit("single-stream decode: MD5s differ from the golden")
-        frames += len(got)
-        stats.append(dec.stats.as_dict())
+    def single():
+        frames, wall, stats = 0, 0.0, []
+        for d, md5 in zip(data, golden):
+            dec = Decoder(device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = [hashlib.md5(f.planar()).hexdigest()
+                   for f in dec.decode_annexb(d)]
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t
+            if got != md5:
+                sys.exit("single-stream decode: MD5s differ from the golden")
+            frames += len(got)
+            stats.append(dec.stats.as_dict())
+        return frames, wall, stats
+
+    (frames, wall, stats), released, calls = metered(single)
     sums = {k: round(sum(s[k] for s in stats), 4)
             for k in ("host_parse_s", "device_dispatch_s", "emit_sync_s")}
     log("batch", f"single-stream Decoder over the {len(data)} streams: "
         f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} frames/s; "
         f"summed {sums}; on {smi}")
+    held_ms = gil_line(
+        f"single-stream Decoder order=phase upload=wire over the "
+        f"{len(data)} streams", frames, wall,
+        sum(s["host_parse_s"] for s in stats), released, calls, smi)
+    # the pool's lanes run the same mix of pictures (lanes cycle the four
+    # streams), so the single stream's GIL-held time a frame times a
+    # round's frames is the time a round holds the GIL at least
+    for (B, order), (bd, wall, released, calls) in pool.items():
+        frames = sum(s["frames"] for s in bd.stats)
+        floor = held_ms * frames / bd.rounds
+        round_ms = 1e3 * wall / bd.rounds
+        log("gil", f"BatchDecoder({B}) order={order} upload=wire: {frames} "
+            f"frames, {bd.rounds} rounds in {wall:.4f} s ({round_ms:.3f} ms "
+            f"a round); lanes' summed host_parse_s "
+            f"{sum(s['host_parse_s'] for s in bd.stats):.4f} s; released_s "
+            f"{released:.4f} s, {1e3 * released / bd.rounds:.3f} ms a round,"
+            f" ms a round by call {per_unit(calls, bd.rounds)}; GIL floor "
+            f"{floor:.3f} ms a round (single stream's {held_ms:.3f} ms a "
+            f"frame x {frames / bd.rounds:.3f} frames a round), "
+            f"{100 * floor / round_ms:.2f} % of the round's wall; on {smi}")
     return launches
 
 
@@ -1253,6 +1334,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script runs only on a GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1589,7 +1671,7 @@ def main() -> None:
     for order, path in paths.items():
         _, _, cold_s = decode(order)            # warm-up: first-call costs
         kernels.reset_launches()
-        dec, md5, wall_s = decode(order)
+        (dec, md5, wall_s), *meter = metered(partial(decode, order))
         launches[order] = dict(kernels.LAUNCHES)
         if dec.entropy != "cpp":
             sys.exit(f"decode: host entropy is {dec.entropy!r}, not the C++ "
@@ -1608,6 +1690,9 @@ def main() -> None:
             f"{wall_s:.3f} s wall, {len(md5) / wall_s:.3f} fps (first pass "
             f"{cold_s:.3f} s) on {smi}; launches {launches[order]}; stats "
             f"{dec.stats.as_dict()}")
+        gil_line(f"single-stream Decoder order={order} upload=wire, "
+                 f"{STREAM.name}", len(md5), wall_s, dec.stats.host_parse_s,
+                 *meter, smi)
 
     batch_launches = batch_phase(paths, smi)
     field_launches = fields_phase(paths, smi)
@@ -1643,6 +1728,7 @@ def main() -> None:
         r["launches_fields"] = field_launches[order][key]
         r["launches_features"] = feature_launches[order][key]
         r["launches_conformance"] = conformance_launches[order][key]
+    log("done", f"chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 entropy library) against the JAX package's, from which it was copied:
 the same streams give the same frame ABIs, POCs and output order."""
 
+import itertools
 import json
 import os
 import subprocess
@@ -15,6 +16,7 @@ import torch
 from arrow_h264_tpu.api import Decoder as JaxDecoder
 from arrow_h264_tpu.ops import synthetic as jsynthetic
 from arrow_h264_tpu_torch.api import Decoder
+from arrow_h264_tpu_torch.host import centropy
 from arrow_h264_tpu_torch.ops import synthetic as tsynthetic
 from tests.torch_ref import encode
 
@@ -88,7 +90,10 @@ print(json.dumps({"lib": lib._name, "src": [str(s) for s in centropy._SRC],
 def test_centropy_builds_and_loads_in_port():
     """The port's entropy library is built from the port's copy of the C++
     sources into the port's _build/ directory, and nothing is loaded from
-    the repository's cpp/ or the JAX package."""
+    the repository's cpp/ or the JAX package.  Every other build (trace,
+    stats, sanitizer and their combinations) has a file of its own there
+    (tests/test_torch_host_instruments.py loads the stats and sanitizer
+    builds and checks the same of them)."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = str(REPO)
@@ -102,3 +107,7 @@ def test_centropy_builds_and_loads_in_port():
     assert not [s for s in out["so"]
                 if Path(s).resolve().parent == REPO / "cpp"]
     assert out["jax_pkg"] == []
+    variants = {centropy.lib_path(*flags) for flags in
+                itertools.product((False, True), repeat=3)}
+    assert len(variants) == 8 and lib in variants
+    assert {p.parent for p in variants} == {PORT / "_build"}
