@@ -58,7 +58,7 @@ def test_port_imports_no_jax():
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
               "__main__", "conceal", "trace", "bitstream.sei",
               "bitstream.fmo", "parallel.batch", "ops.wire",
-              "parallel.sharding"):
+              "parallel.sharding", "bench"):
         assert f"arrow_h264_tpu_torch.{m}" in out["mods"]
 
 
