@@ -375,20 +375,21 @@ ABI_WORDS = (3 + 1 + 16 + 64, 3 + 1 + 4 + 16, 3 + 1 + 1, 3)
 def intra_need(a, res, init=None) -> tuple[float, float]:
     """Bytes and operations of intra reconstruction: `kind` of every MB,
     the other ABI fields each intra MB's kind reads (ABI_WORDS), the
-    prediction tables, the residual of the intra MBs and the init samples
-    of the other MBs read once, the uint8 planes written once; per intra
-    luma sample 2 ops per directional tap (13 for 4x4, 25 for 8x8) plus
-    the clip and residual add, and a few per chroma sample."""
-    from arrow_h264_tpu_torch.ops.intra_tables import R4, R8, S4, S8, W4, W8
+    packed prediction tables, the residual of the intra MBs and the init
+    samples of the other MBs read once, the uint8 planes written once;
+    per intra luma sample 2 ops per directional tap (3 taps, and the 8x8
+    reference filter) plus the clip and residual add, and a few per
+    chroma sample."""
+    from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_tables
     kind = a["kind"]
     counts = [int((kind == k).sum()) for k in range(4)]
     n, n_intra = kind.numel(), sum(counts)
     byts = 4 * (n + sum(c * w for c, w in zip(counts, ABI_WORDS))) \
-        + sum(t.nbytes for t in (W4, S4, R4, W8, S8, R8)) \
+        + intra_tables().nbytes \
         + nbytes(*res) * n_intra / n \
         + (0 if init is None else nbytes(*init) * (n - n_intra) / n) \
         + sum(r.numel() for r in res)           # uint8 planes out
-    ops = 256 * (counts[0] * 30 + counts[1] * 54 + counts[2] * 6 + counts[3]) \
+    ops = 256 * (counts[0] * 8 + counts[1] * 10 + counts[2] * 6 + counts[3]) \
         + 128 * 6 * n_intra
     return byts, ops
 

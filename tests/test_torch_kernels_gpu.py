@@ -172,6 +172,53 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
            want)
 
 
+# frames of one MB kind, from one MB to 1080p
+ONE_KIND_GRIDS = [(1, 1), (1, 6), (6, 1), (7, 5), (120, 68)]
+
+
+def _one_kind_inputs(mb_w, mb_h, B, kind, seed, dev):
+    """B streams whose MBs are all of `kind` (0 I4x4, 1 I8x8, 2 I16x16,
+    3 PCM), over random init planes: the modes cycle over the MBs and
+    blocks of the batch, so every mode occurs where the batch has room
+    for it, and the availability bits are random (atr 0 and 1, reads at
+    the picture border).  (abi, residual planes, init planes)."""
+    H, W = mb_h * 16, mb_w * 16
+    n = mb_w * mb_h
+    rng = np.random.default_rng(seed)
+    m = np.arange(B * n).reshape(B, n)
+    a = {"kind": np.full((B, n), kind),
+         "i4_modes": (16 * m[..., None] + np.arange(16)) % 9,
+         "i4_avail": rng.integers(0, 2, (B, n, 16, 4)),
+         "i8_modes": (4 * m[..., None] + np.arange(4)) % 9,
+         "i8_avail": rng.integers(0, 2, (B, n, 4, 4)),
+         "i16_mode": m % 4, "chroma_mode": (m + m // 4) % 4,
+         "mb_avail": rng.integers(0, 2, (B, n, 3))}
+    a = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+         for k, v in a.items()}
+    shapes = ((B, H, W), (B, H // 2, W // 2), (B, H // 2, W // 2))
+    lo = 0 if kind == 3 else -300         # PCM residuals are raw samples
+    res = [torch.from_numpy(rng.integers(lo, 256 if kind == 3 else 300, s)
+                            .astype(np.int32)).to(dev) for s in shapes]
+    init = [torch.from_numpy(rng.integers(0, 256, s).astype(np.int32))
+            .to(dev) for s in shapes]
+    return a, res, init
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("mb_w,mb_h", ONE_KIND_GRIDS)
+@pytest.mark.parametrize("kind", [0, 1, 2, 3],
+                         ids=["i4x4", "i8x8", "i16", "pcm"])
+def test_intra_kernels_one_kind(dev, kind, mb_w, mb_h, B):
+    """K1 and K5 on frames of one MB kind, so each path of the per-MB body
+    (csrc/intra_mb.cuh) runs alone: equal to the plain version, and K5 to
+    K1."""
+    a, res, init = _one_kind_inputs(mb_w, mb_h, B, kind, 100 * kind + B, dev)
+    want = intra_reconstruct(a, *res, mb_w, mb_h, *init)
+    got = intra_phase(a, *res, *init, mb_w, mb_h)
+    _equal(got, want)
+    _equal(intra_raster(a, *res, *init, mb_w, mb_h), got)
+
+
 # order -> the intra and deblock kernels of Decoder(order=...), by name
 ORDERS = {"phase": {"intra_phase": intra_phase,
                     "deblock_phase": deblock_phase},
@@ -394,6 +441,21 @@ def test_wrappers_refuse_bad_tensors(dev):
     dy, _ = dpb_alloc(7, 5, 2, dev)
     with pytest.raises(ValueError):
         mc_luma(dy[None], a["mv"].transpose(2, 3), a["refslot"], 7, 5)
+
+
+@pytest.mark.parametrize("fn", [intra_phase, intra_raster])
+def test_intra_wrappers_refuse_unaligned_residual(dev, fn):
+    """The intra kernels copy residual rows 16 bytes at a time: a residual
+    plane that does not start on 16 bytes is refused, never launched."""
+    _, a = synthetic_batch(7, 5, 1, dev)
+    res = _residual(a, 7, 5, dev)
+    shifted = torch.empty(res[0].numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(res[0].shape)
+    shifted.copy_(res[0])
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(a, shifted, *res[1:], None, None, None, 7, 5)
+    assert kernels.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("order,path", [

@@ -2,14 +2,15 @@
 (intra_phase) and K2 (deblock_phase) on the knight-move wavefront, K5
 (intra_raster) and K6 (deblock_raster) on the row pipeline.
 
-    python tools/wavefront_probe.py [--out FILE.json]
+    python tools/wavefront_probe.py [--size 1080p|2160p] [--out FILE.json]
 
 Builds variants of csrc/intra_phase.cu, csrc/deblock_phase.cu,
 csrc/intra_raster.cu and csrc/deblock_raster.cu from the sources in the
 checkout (text edits of copies, each variant one library under
 arrow_h264_tpu_torch/_build/probe/) and times each, through the port's
-wrappers, on chip_smoke.py's synthetic all-intra 1080p frame (half I4x4,
-half I16x16 MBs) at B = 1 and on four such frames (B = 4), and at B = 1
+wrappers, on chip_smoke.py's synthetic all-intra frame (half I4x4, half
+I16x16 MBs) at 1920x1088 (--size 1080p, the default) or 3840x2160
+(--size 2160p), at B = 1 and on four such frames (B = 4), and at B = 1
 on the same frame with every MB made I4x4 or I16x16 (K2 and K6 on the
 exact output of K1 as built, in every variant):
   as_built      the sources as they are
@@ -22,10 +23,13 @@ exact output of K1 as built, in every variant):
                 what the fence, which invalidates the SM's L1, costs
   relaxed_pub   flags and counters set with relaxed stores instead of
                 release stores (output not exact)
-  no_bodies     the waits, flags and counters without the MB bodies: the
-                hand-off chain alone
-  no_chroma     K1/K5 without the chroma body: the luma chain alone
-  no_luma       K1/K5 without the luma body: the chroma chain alone
+  no_bodies     the waits, flags and counters without the MB bodies (and
+                without K1/K5's staging of an MB's residual and modes):
+                the hand-off chain alone
+  no_chroma     K1/K5 without the chroma body: the luma chain alone (the
+                chroma parts still stage their residual)
+  no_luma       K1/K5 without the luma body: the chroma chain alone (the
+                luma parts still stage theirs)
   one_per_sm    the grid cut to one block per SM
 For each variant it also counts the L1-invalidating CCTL instructions
 in the compiled code (cuobjdump -sass).  Prints a table, and writes the
@@ -67,7 +71,9 @@ from arrow_h264_tpu_torch.ops.synthetic import synthetic_batch  # noqa: E402
 from arrow_h264_tpu_torch.ops.transforms import (  # noqa: E402
     make_ws_consts, residual_planes,
 )
-from chip_smoke import MB_H, MB_W, SEED, cuda_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    MB_H, MB_H_4K, MB_W, MB_W_4K, SEED, cuda_ms,
+)
 
 REPS = 20
 SOURCES = ("intra_phase.cu", "deblock_phase.cu", "intra_raster.cu",
@@ -77,9 +83,12 @@ PAIRS = ((1, intra_phase, 2, deblock_phase),
          (5, intra_raster, 6, deblock_raster))
 INTRA = ("intra_phase.cu", "intra_raster.cu")
 DEBLOCK = ("deblock_phase.cu", "deblock_raster.cu")
-LUMA = "intra::intra_mb_luma(a, b, mx, my, kind, t);"
-CHROMA = "intra::intra_mb_chroma(a, b, mx, my, kind, t >> 6, t & 63, t < 128);"
+LUMA = "intra::intra_mb_luma(a, sm, buf, b, mx, my, kind, t);"
+CHROMA = "intra::intra_mb_chroma(a, sm, buf, b, mx, my, kind, t);"
 LINE = "deblock::deblock_line(a, b, pl, mx, my, d, k);"
+# the first statements of intra_mb.cuh's stage and describe
+STAGE = "  Stage& st = sm.stage[buf];\n  const long mbo"
+DESCRIBE = "  if (t < 32 || t >= 64) return;\n  copy_wait();"
 # variant -> [(file, text, replacement)]; each text must occur in the file
 VARIANTS = {
     "as_built": [],
@@ -94,7 +103,9 @@ VARIANTS = {
     "relaxed_pub": [("wavefront.cuh",
                      "store(value, cuda::memory_order_release)",
                      "store(value, cuda::memory_order_relaxed)")],
-    "no_bodies": [(f, LUMA, ";") for f in INTRA]
+    "no_bodies": [("intra_mb.cuh", STAGE, "  return;\n" + STAGE),
+                  ("intra_mb.cuh", DESCRIBE, "  return;\n" + DESCRIBE)]
+    + [(f, LUMA, ";") for f in INTRA]
     + [(f, CHROMA, ";") for f in INTRA] + [(f, LINE, "") for f in DEBLOCK],
     "no_chroma": [(f, CHROMA, ";") for f in INTRA],
     "no_luma": [(f, LUMA, ";") for f in INTRA],
@@ -102,6 +113,7 @@ VARIANTS = {
                     "const long g = sms;")],
 }
 KINDS = {"i4x4": 0, "i16": 2}           # frames of one MB kind
+SIZES = {"1080p": (MB_W, MB_H), "2160p": (MB_W_4K, MB_H_4K)}
 
 
 def variant_sources(name: str, d: Path) -> list[Path]:
@@ -134,21 +146,23 @@ def cctl_count(lib: Path) -> int:
     return sum("CCTL" in line for line in sass.splitlines())
 
 
-def inputs(B: int, dev, kind: int | None = None):
+def inputs(mb_w: int, mb_h: int, B: int, dev, kind: int | None = None):
     ws4, ws8 = (t.to(dev) for t in make_ws_consts([[16] * 16] * 6,
                                                   [[16] * 64] * 2))
-    batch = [synthetic_batch(MB_W, MB_H, SEED + i, dev)[1] for i in range(B)]
+    batch = [synthetic_batch(mb_w, mb_h, SEED + i, dev)[1] for i in range(B)]
     a = {k: torch.cat([x[k] for x in batch]) for k in batch[0]}
     if kind is not None:
         a["kind"] = torch.full_like(a["kind"], kind)
-    return a, residual_planes(a, MB_W, MB_H, ws4, ws8), \
-        deblock_tables(a, MB_W, MB_H)
+    return a, residual_planes(a, mb_w, mb_h, ws4, ws8), \
+        deblock_tables(a, mb_w, mb_h)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--size", choices=SIZES, default="1080p")
     ap.add_argument("--out", help="write the numbers as JSON here")
     args = ap.parse_args()
+    mb_w, mb_h = SIZES[args.size]
     if not torch.cuda.is_available():
         sys.exit("wavefront_probe: needs a CUDA device")
     dev = torch.device("cuda")
@@ -157,16 +171,18 @@ def main() -> None:
                          text=True).stdout.strip().splitlines()[0]
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         libs = dict(zip(VARIANTS, ex.map(build_variant, VARIANTS)))
-    cases = {"b1": inputs(1, dev), "b4": inputs(4, dev)}
-    cases.update({k: inputs(1, dev, kind) for k, kind in KINDS.items()})
-    out = {"gpu": smi, "frame": f"{MB_W}x{MB_H} MBs, synthetic_abi",
+    cases = {"b1": inputs(mb_w, mb_h, 1, dev),
+             "b4": inputs(mb_w, mb_h, 4, dev)}
+    cases.update({k: inputs(mb_w, mb_h, 1, dev, kind)
+                  for k, kind in KINDS.items()})
+    out = {"gpu": smi, "frame": f"{mb_w}x{mb_h} MBs, synthetic_abi",
            "reps": REPS, "variants": {}}
     cols = [f"k{i}_{c}_ms" for i in (1, 2, 5, 6) for c in cases]
     print(f"wavefront_probe on {smi}: ms per launch, mean of {REPS}")
     print(f"  {'variant':14s} " + " ".join(f"{c[:-3]:>9s}" for c in cols)
           + f" {'CCTL':>5s}")
     build.load(libs["as_built"])        # K2's input: K1's exact output
-    intra = {case: intra_phase(a, *res, None, None, None, MB_W, MB_H)
+    intra = {case: intra_phase(a, *res, None, None, None, mb_w, mb_h)
              for case, (a, res, _) in cases.items()}
     for name, lib in libs.items():
         build.load(lib)                 # the wrappers now call this variant
@@ -174,11 +190,11 @@ def main() -> None:
         for case, (a, res, tables) in cases.items():
             for ki, intra_fn, kd, deblock_fn in PAIRS:
                 row[f"k{ki}_{case}_ms"] = cuda_ms(
-                    lambda: intra_fn(a, *res, None, None, None, MB_W, MB_H),
+                    lambda: intra_fn(a, *res, None, None, None, mb_w, mb_h),
                     REPS)
                 planes = tuple(p.clone() for p in intra[case])
                 row[f"k{kd}_{case}_ms"] = cuda_ms(
-                    lambda: deblock_fn(*planes, tables, MB_W, MB_H), REPS)
+                    lambda: deblock_fn(*planes, tables, mb_w, mb_h), REPS)
         out["variants"][name] = row
         print(f"  {name:14s} " + " ".join(f"{row[c]:9.4f}" for c in cols)
               + f" {row['cctl']:5d}")
