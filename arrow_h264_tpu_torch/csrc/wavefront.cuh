@@ -4,10 +4,10 @@
 // deblock_raster.cu).
 //
 // Wavefront kernels.  A launch gets `scratch`: int32 ready flags, B * n
-// per part of an MB that the kernel chains on its own (K1: luma and
-// chroma; K2: one), followed by one ticket counter, all zeroed on the
-// launch stream before the kernel runs.  A worker (a block in K1, a warp
-// in K2) takes ticket t with atomicAdd on the counter; u = t / parts names
+// per part of an MB that the kernel chains on its own (K1 and K2: luma
+// and chroma), followed by one ticket counter, all zeroed on the launch
+// stream before the kernel runs.  A worker (a block in K1, a warp in K2)
+// takes ticket t with atomicAdd on the counter; u = t / parts names
 // stream u % B, MB order[u / B], where `order` is the frame's MBs sorted by
 // knight phase 2 * my + mx (ops/kernels/wavefront.py::wavefront_order),
 // and t % parts the part.  Before its body the worker waits (acquire) on

@@ -22,9 +22,9 @@ _TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
 
 def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
     """Deblock [B] frames along the knight-move wavefront: one persistent
-    launch with per-MB ready flags (csrc/deblock_phase.cu).  Arguments
-    and result as for run_deblock."""
-    extra = wavefront_args(y.shape[0], mb_w, mb_h, y.device) \
+    launch with ready flags per MB and part, luma and chroma
+    (csrc/deblock_phase.cu).  Arguments and result as for run_deblock."""
+    extra = wavefront_args(y.shape[0], mb_w, mb_h, y.device, parts=2) \
         if cuda_device(y) else ()
     return run_deblock("deblock_phase", y, cb, cr, tables, mb_w, mb_h, extra)
 
@@ -50,6 +50,10 @@ def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int,
         require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
     for k in TABLE_KEYS:
         require(tables[k], k, torch.int32, (B, n) + _TABLE_SHAPES[k], dev)
+    for arg, t in (("y", y), ("cb", cb), ("cr", cr),
+                   *((k, tables[k]) for k in TABLE_KEYS)):
+        if t.data_ptr() % 16:           # the kernel copies 16-byte rows
+            raise ValueError(f"{arg}: not 16-byte aligned")
     ptrs = [p.data_ptr() for p in (y, cb, cr)] + \
         [tables[k].data_ptr() for k in TABLE_KEYS] + \
         [t.data_ptr() for t in extra]

@@ -14,8 +14,9 @@ from .wavefront import row_args
 
 def deblock_raster(y, cb, cr, tables, mb_w: int, mb_h: int):
     """Deblock [B] frames in raster order within each MB row, the spec's
-    own: one persistent launch, one worker per (MB row, stream), each two
-    MBs behind the row above.  Arguments and result as for
-    deblock_phase.run_deblock."""
-    extra = row_args(y.shape[0], mb_h, y.device) if cuda_device(y) else ()
+    own: one persistent launch, one worker per (MB row, stream, part:
+    luma or chroma), each two MBs behind the row above in its part.
+    Arguments and result as for deblock_phase.run_deblock."""
+    extra = row_args(y.shape[0], mb_h, y.device, parts=2) \
+        if cuda_device(y) else ()
     return run_deblock("deblock_raster", y, cb, cr, tables, mb_w, mb_h, extra)

@@ -3,7 +3,8 @@
 `synthetic_abi` / `synthetic_abi_p` make numpy ABIs, the same as the JAX
 package's `arrow_h264_tpu.ops.synthetic`: a random I frame, or a P/B frame
 with a bounded MV palette and sparse intra MBs.  `synthetic_batch` uploads
-one; `random_intra_abi` draws the intra fields with no structure at all.
+one; `random_intra_abi` draws the intra fields with no structure at all,
+`random_deblock_tables` the deblocking tables.
 """
 
 from __future__ import annotations
@@ -146,3 +147,25 @@ def random_intra_abi(mb_w: int, mb_h: int, seed: int) -> dict:
         i16_mode=rng.integers(0, 4, n).astype(np.int32),
         chroma_mode=rng.integers(0, 4, n).astype(np.int32),
         mb_avail=rng.integers(0, 2, (n, 3)).astype(np.int32))
+
+
+def random_deblock_tables(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
+    """Deblocking tables (numpy int32, the keys and shapes of
+    ops/deblock.py::deblock_tables, [B, n, ...]) with no structure: bS
+    0..4, tc0 0..25, alpha and beta 0..255 on every edge, but bS 0 on the
+    edges at the picture's left and top border, as deblock_tables
+    guarantees."""
+    rng = np.random.default_rng(seed)
+    n = mb_w * mb_h
+    shapes = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
+              "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
+              "bs_c": (2, 2, 4), "tc_c": (2, 2, 4, 2), "a_c": (2, 2, 2),
+              "b_c": (2, 2, 2)}
+    hi = {"bs": 5, "tc": 26, "a_": 256, "b_": 256}
+    t = {k: rng.integers(0, hi[k[:2]], (B, n) + s).astype(np.int32)
+         for k, s in shapes.items()}
+    t["bs_v"].reshape(B, mb_h, mb_w, 4, 4)[:, :, 0, 0] = 0
+    t["bs_h"].reshape(B, mb_h, mb_w, 4, 4)[:, 0, :, 0] = 0
+    t["bs_c"].reshape(B, mb_h, mb_w, 2, 2, 4)[:, :, 0, 0, 0] = 0
+    t["bs_c"].reshape(B, mb_h, mb_w, 2, 2, 4)[:, 0, :, 1, 0] = 0
+    return t

@@ -10,14 +10,16 @@ Phases (each prints a line; any failure exits non-zero):
               1080p (mb 120 x 68), exact equality, with CUDA-event times;
               the raster-order kernels K5/K6 also against K1/K2; K1/K5
               also on a random intra ABI of every MB kind over random
-              init planes (the JSON keeps the synthetic_abi numbers);
+              init planes, K2/K6 also on random tables (bS 0..4, tc0
+              0..25, alpha and beta 0..255) over random planes (the JSON
+              keeps the synthetic_abi numbers);
               each kernel's device launches in one wrapper call, counted
               by torch.profiler after phase 10 (every kernel must launch
               once per call)
   4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
               1080p input, every output equal to the plain version; all
               four at B = 4 (four 1080p frames in one launch each), exact
-              and timed
+              and timed, K2/K6 also on synthetic_abi_p and random tables
   5. mc       K3 and K4 (uint8 predictions) at B = 1 on synthetic_abi_p
               and with 5 % wild MVs, warm and cold (L2 flushed before
               each launch); on the first P and the first B picture of
@@ -136,7 +138,8 @@ Phases (each prints a line; any failure exits non-zero):
               lane) with each order and once with upload="dense"; (d)
               K1-K6 at 3840x2160, each against its plain version at B = 4
               (four pictures or streams in one launch, as the 4K
-              BatchDecoder launches them) and at B = 1, timed at B = 1 as
+              BatchDecoder launches them) and at B = 1 (K2/K6 also on
+              synthetic_abi_p and random tables), timed at B = 1 as
               in phases 3 and 5, with the byte bound and the plain
               versions' seconds; and the chain estimate of K1, K2, K5 and K6
               at 1080p and 4K: the kernel's ms on a one-MB-row strip of
@@ -392,6 +395,20 @@ def intra_need(a, res, init=None) -> tuple[float, float]:
     ops = 256 * (counts[0] * 8 + counts[1] * 10 + counts[2] * 6 + counts[3]) \
         + 128 * 6 * n_intra
     return byts, ops
+
+
+def random_deblock_case(mb_w: int, mb_h: int, B: int, seed: int):
+    """(planes, tables) on the card: random uint8 planes (0..255) and
+    random_deblock_tables (bS 0..4, tc0 0..25, alpha and beta 0..255)."""
+    from arrow_h264_tpu_torch.ops.synthetic import random_deblock_tables
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, W = mb_h * 16, mb_w * 16
+    planes = tuple(torch.randint(0, 256, s, generator=g, device="cuda",
+                                 dtype=torch.uint8)
+                   for s in ((B, H, W), (B, H // 2, W // 2),
+                             (B, H // 2, W // 2)))
+    return planes, {k: torch.from_numpy(v).to("cuda") for k, v in
+                    random_deblock_tables(mb_w, mb_h, B, seed).items()}
 
 
 def deblock_need(tables, planes) -> tuple[float, float]:
@@ -1235,16 +1252,21 @@ def kernels_2160p(results: dict, smi: str) -> None:
                 fn(ra, *res_r, *init, mw, mh), want_r)
     del ra, pcm, res_r, init, want_r
 
-    # K2/K6 at B = 1, timed: on lane 0 of K1's output with its tables, and
-    # on random planes with synthetic_abi_p tables
+    # K2/K6 at B = 1, timed: on lane 0 of K1's output with its tables, on
+    # textured planes with synthetic_abi_p tables, and on random planes
+    # with random tables
     _, ap = synthetic_batch(mw, mh, SEED, dev, inter=True, bi_frac=0.3)
     planes_p, tables_p = rand_planes(96, 160, torch.uint8), \
         deblock_tables(ap, mw, mh)
+    planes_r, tables_r = random_deblock_case(mw, mh, 1, SEED + 44)
     cases = (("synthetic_abi", lane0(want), deblock_tables(a, mw, mh),
               lane0(want_d)),
              ("synthetic_abi_p", planes_p, tables_p,
               plain("deblock_filter_planes synthetic_abi_p",
-                    deblock_filter_planes, *planes_p, tables_p, mw, mh)))
+                    deblock_filter_planes, *planes_p, tables_p, mw, mh)),
+             ("random_tables", planes_r, tables_r,
+              plain("deblock_filter_planes random_tables",
+                    deblock_filter_planes, *planes_r, tables_r, mw, mh)))
     for note, planes, tables, want_n in cases:
         for key, fn in deblock.items():
             compare(f"{key} 3840x2160 {note}",
@@ -1256,7 +1278,7 @@ def kernels_2160p(results: dict, smi: str) -> None:
                 results[key].update(ms_2160p=ms, bound_ms_2160p=bound_ms)
             log("conformance", f"{results[key]['name']} 3840x2160 {note}: "
                 f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms")
-    del want, want_d, cases, planes_p, tables_p
+    del want, want_d, cases, planes_p, tables_p, planes_r, tables_r
 
     # K3/K4: four synthetic_abi_p streams, each over 4 random reference
     # pictures of its own, then with 5 % wild MVs (+-512 quarter samples);
@@ -1393,7 +1415,8 @@ def main() -> None:
             bound_by=bound_by, library_ms=None))
 
     # K1/K5 + K2/K6 on synthetic I (all intra) and P (inter MVs: bS 0..2)
-    # ABIs; each pair against the plain version and against each other
+    # ABIs, then K2/K6 on random tables over random planes; each pair
+    # against the plain version and against each other
     intra_kernels = (
         ("intra_phase", intra_phase, "K1", "intra_phase.cu",
          "arrow_h264_tpu/ops/pallas/intra_phase.py:694"),
@@ -1404,11 +1427,16 @@ def main() -> None:
          "arrow_h264_tpu/ops/pallas/deblock_phase.py:395"),
         ("deblock_raster", deblock_raster, "K6", "deblock_raster.cu",
          "arrow_h264_tpu/ops/pallas/deblock_kernel.py:287"))
-    for note, inter in (("synthetic_abi", False), ("synthetic_abi_p", True)):
-        _, a = synthetic_batch(MB_W, MB_H, SEED, dev, inter=inter,
-                               **({"bi_frac": 0.3} if inter else {}))
-        res = residual_planes(a, MB_W, MB_H, ws4, ws8)
+    for note, inter in (("synthetic_abi", False), ("synthetic_abi_p", True),
+                        ("random_tables", None)):
+        if inter is None:            # random planes and tables
+            planes, tables = random_deblock_case(MB_W, MB_H, 1, SEED + 6)
+        else:
+            _, a = synthetic_batch(MB_W, MB_H, SEED, dev, inter=inter,
+                                   **({"bi_frac": 0.3} if inter else {}))
+            tables = deblock_tables(a, MB_W, MB_H)
         if note == "synthetic_abi":
+            res = residual_planes(a, MB_W, MB_H, ws4, ws8)
             want = tuple(p.to(torch.uint8)
                          for p in intra_reconstruct(a, *res, MB_W, MB_H))
             plain = cuda_ms(lambda: intra_reconstruct(a, *res, MB_W, MB_H), 1)
@@ -1425,13 +1453,12 @@ def main() -> None:
                 outs.append(got)
             compare("intra_raster vs intra_phase", outs[1], outs[0])
             planes = outs[0]
-        else:                        # mid-grey planes with texture
+        elif inter:                  # mid-grey planes with texture
             g = torch.Generator(device=dev).manual_seed(SEED)
             planes = tuple(torch.randint(96, 160, s, generator=g, device=dev,
                                          dtype=torch.uint8)
                            for s in ((1, H, W), (1, H // 2, W // 2),
                                      (1, H // 2, W // 2)))
-        tables = deblock_tables(a, MB_W, MB_H)
         want = tuple(p.to(torch.uint8)
                      for p in deblock_filter_planes(*planes, tables,
                                                     MB_W, MB_H))
@@ -1524,6 +1551,29 @@ def main() -> None:
         f"{key} {results[key]['ms_b4']:.4f} ms"
         for key, *_ in intra_kernels + deblock_kernels)
         + " per launch, all equal to the plain versions")
+    # K2, K6 at B = 4 also on synthetic_abi_p tables over textured planes
+    # and on random tables over random planes
+    batch = [synthetic_batch(MB_W, MB_H, SEED + 20 + i, dev, inter=True,
+                             bi_frac=0.3)[1] for i in range(B4)]
+    ap4 = {k: torch.cat([x[k] for x in batch]) for k in batch[0]}
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cases4 = (("synthetic_abi_p", tuple(
+        torch.randint(96, 160, p.shape, generator=g, device=dev,
+                      dtype=torch.uint8) for p in got),
+        deblock_tables(ap4, MB_W, MB_H)),
+        ("random_tables", *random_deblock_case(MB_W, MB_H, B4, SEED + 21)))
+    for note, planes4, tables4 in cases4:
+        want = tuple(p.to(torch.uint8) for p in deblock_filter_planes(
+            *planes4, tables4, MB_W, MB_H))
+        for key, fn, kid, *_ in deblock_kernels:
+            compare(f"{key} B={B4} {note}", fn(*(p.clone() for p in planes4),
+                                               tables4, MB_W, MB_H), want)
+            work = tuple(p.clone() for p in planes4)
+            ms = kernel_ms(partial(fn, *work, tables4, MB_W, MB_H))
+            log("wavefront", f"{key} ({kid}) B={B4} {note}: equal, kernel "
+                f"{ms:.4f} ms, bound "
+                f"{bound(*deblock_need(tables4, planes4))[0]:.4f} ms")
+    del batch, ap4, cases4
 
     # K3 + K4 on a P/B ABI over 4 random reference pictures, then with 5%
     # wild MVs (+-512 quarter samples); on synthetic_abi_p also cold (L2

@@ -92,6 +92,7 @@ def test_cli_help_imports_no_jax():
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py",
                                     "tools/wavefront_probe.py",
                                     "tools/intra_bench.py",
+                                    "tools/deblock_bench.py",
                                     "tools/gpu_conformance.py",
                                     "tools/conformance_streams.py"])
 def test_scripts_import_only_the_port(script):

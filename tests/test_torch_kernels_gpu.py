@@ -30,7 +30,7 @@ from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
 from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
 from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
 from arrow_h264_tpu_torch.ops.synthetic import (
-    random_intra_abi, synthetic_batch,
+    random_deblock_tables, random_intra_abi, synthetic_batch,
 )
 from arrow_h264_tpu_torch.ops.transforms import (
     make_ws_consts, residual_planes,
@@ -120,10 +120,10 @@ def test_raster_kernels(dev, mb_w, mb_h, inter):
 
 def _random_inputs(mb_w, mb_h, B, seed, dev):
     """B streams of random intra ABIs (random modes and availability) over
-    random init planes, and random deblock tables (every bS, tc0, alpha,
-    beta): (abi, residual planes, init planes, tables)."""
+    random init planes, and random deblock tables (random_deblock_tables:
+    every bS, tc0, alpha, beta): (abi, residual planes, init planes,
+    tables)."""
     H, W = mb_h * 16, mb_w * 16
-    n = mb_w * mb_h
     rng = np.random.default_rng(seed)
     abis = [random_intra_abi(mb_w, mb_h, 7 * seed + i) for i in range(B)]
     a = {k: torch.from_numpy(np.stack([x[k] for x in abis])).to(dev)
@@ -139,22 +139,8 @@ def _random_inputs(mb_w, mb_h, B, seed, dev):
     res = [torch.from_numpy(r).to(dev) for r in res]
     init = [torch.from_numpy(rng.integers(0, 256, s).astype(np.int32))
             .to(dev) for s in shapes]
-
-    def t(lo, hi, *shape):
-        return torch.from_numpy(rng.integers(lo, hi, (B, n) + shape)
-                                .astype(np.int32)).to(dev)
-
-    tables = {"bs_v": t(0, 5, 4, 4), "tc_v": t(0, 26, 4, 4),
-              "a_v": t(0, 256, 4), "b_v": t(0, 19, 4),
-              "bs_h": t(0, 5, 4, 4), "tc_h": t(0, 26, 4, 4),
-              "a_h": t(0, 256, 4), "b_h": t(0, 19, 4),
-              "bs_c": t(0, 5, 2, 2, 4), "tc_c": t(0, 26, 2, 2, 4, 2),
-              "a_c": t(0, 256, 2, 2, 2), "b_c": t(0, 19, 2, 2, 2)}
-    # no edge at the picture border, as deblock_tables guarantees
-    tables["bs_v"].view(B, mb_h, mb_w, 4, 4)[:, :, 0, 0] = 0
-    tables["bs_h"].view(B, mb_h, mb_w, 4, 4)[:, 0, :, 0] = 0
-    tables["bs_c"].view(B, mb_h, mb_w, 2, 2, 4)[:, :, 0, 0, 0] = 0
-    tables["bs_c"].view(B, mb_h, mb_w, 2, 2, 4)[:, 0, :, 1, 0] = 0
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              random_deblock_tables(mb_w, mb_h, B, seed).items()}
     return a, res, init, tables
 
 
@@ -170,6 +156,42 @@ def test_kernels_random_batch(dev, mb_w, mb_h):
     _equal(deblock_phase(*(p.clone() for p in got), tables, mb_w, mb_h), want)
     _equal(deblock_raster(*(p.clone() for p in got), tables, mb_w, mb_h),
            want)
+
+
+# one MB, one MB wide or high, a ragged grid and 1080p
+DEBLOCK_GRIDS = [(1, 1), (1, 6), (6, 1), (7, 5), (120, 68)]
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", DEBLOCK_GRIDS)
+@pytest.mark.parametrize("tables", ["random", "field"])
+def test_deblock_kernels_tables(dev, tables, mb_w, mb_h, B):
+    """K2 and K6 on B streams of random planes, with random tables (bS
+    0..4, tc0 0..25, alpha and beta 0..255 on every edge inside the
+    picture) or with the tables of field pictures (deblock_tables(...,
+    field=True) of synthetic P/B ABIs with intra MBs): each equal to the
+    plain version, one launch a call."""
+    seed = 1000 * B + 10 * mb_w + mb_h
+    rng = np.random.default_rng(seed)
+    H, W = mb_h * 16, mb_w * 16
+    planes = [torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+              .to(dev) for s in ((B, H, W), (B, H // 2, W // 2),
+                                 (B, H // 2, W // 2))]
+    if tables == "random":
+        tabs = {k: torch.from_numpy(v).to(dev) for k, v in
+                random_deblock_tables(mb_w, mb_h, B, seed).items()}
+    else:
+        abis = [synthetic_batch(mb_w, mb_h, seed + i, dev, inter=True,
+                                intra_frac=0.4, bi_frac=0.3)[1]
+                for i in range(B)]
+        a = {k: torch.cat([x[k] for x in abis]) for k in abis[0]}
+        tabs = deblock_tables(a, mb_w, mb_h, (1, -1), field=True)
+    want = deblock_filter_planes(*planes, tabs, mb_w, mb_h)
+    n0 = dict(kernels.LAUNCHES)
+    for name, fn in (("deblock_phase", deblock_phase),
+                     ("deblock_raster", deblock_raster)):
+        _equal(fn(*(p.clone() for p in planes), tabs, mb_w, mb_h), want)
+        assert kernels.LAUNCHES[name] == n0[name] + 1
 
 
 # frames of one MB kind, from one MB to 1080p
@@ -455,6 +477,27 @@ def test_intra_wrappers_refuse_unaligned_residual(dev, fn):
     n0 = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match="16-byte"):
         fn(a, shifted, *res[1:], None, None, None, 7, 5)
+    assert kernels.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("fn", [deblock_phase, deblock_raster])
+def test_deblock_wrappers_refuse_unaligned(dev, fn):
+    """The deblock kernels copy 8- and 16-byte pieces of the planes and
+    tables: a plane or a table that does not start on 16 bytes is
+    refused, never launched."""
+    planes, tables = [torch.zeros(s, dtype=torch.uint8, device=dev)
+                      for s in ((1, 80, 112), (1, 40, 56), (1, 40, 56))], \
+        {k: torch.from_numpy(v).to(dev)
+         for k, v in random_deblock_tables(7, 5, 1, 0).items()}
+    shifted = torch.empty(planes[1].numel() + 4, dtype=torch.uint8,
+                          device=dev)[4:].view(planes[1].shape)
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(planes[0], shifted, planes[2], tables, 7, 5)
+    word = torch.empty(tables["a_c"].numel() + 1, dtype=torch.int32,
+                       device=dev)[1:].view(tables["a_c"].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(*planes, {**tables, "a_c": word}, 7, 5)
     assert kernels.LAUNCHES == n0
 
 

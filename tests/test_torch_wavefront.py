@@ -201,15 +201,15 @@ ROW_RUNS = [("newest", None), ("oldest", None), ("random", None),
 @pytest.mark.parametrize("mb_w,mb_h", ROW_SIZES)
 def test_row_schedule(mb_w, mb_h):
     """The row pipeline of K5 (two parts, a third of the MBs inter, which
-    it passes over) and of K6 under each replay: with as many workers as
-    rows, two, three, and a single worker; two streams, one at 1080p.
-    Every body runs after everything it reads or overwrites, and every
-    wait ends."""
+    it passes over) and of K6 (two parts, as the kernel runs it, and one)
+    under each replay: with as many workers as rows, two, three, and a
+    single worker; two streams, one at 1080p.  Every body runs after
+    everything it reads or overwrites, and every wait ends."""
     B = 1 if mb_w * mb_h > 1000 else 2
     runs = ROW_RUNS[:2] + ROW_RUNS[-1:] if B == 1 else ROW_RUNS
     inter = np.random.default_rng(mb_w + mb_h).random((B, mb_h, mb_w)) < 0.3
     for seed, (strategy, n) in enumerate(runs):
-        for parts, kinds in ((2, inter), (1, None)):
+        for parts, kinds in ((2, inter), (2, None), (1, None)):
             n_workers = n or parts * B * mb_h
             log = _run_rows(strategy, n_workers, B, parts, mb_w, mb_h,
                             kinds, seed=seed)

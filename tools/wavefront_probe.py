@@ -24,12 +24,13 @@ exact output of K1 as built, in every variant):
   relaxed_pub   flags and counters set with relaxed stores instead of
                 release stores (output not exact)
   no_bodies     the waits, flags and counters without the MB bodies (and
-                without K1/K5's staging of an MB's residual and modes):
-                the hand-off chain alone
-  no_chroma     K1/K5 without the chroma body: the luma chain alone (the
-                chroma parts still stage their residual)
-  no_luma       K1/K5 without the luma body: the chroma chain alone (the
-                luma parts still stage theirs)
+                without their staging: K1/K5's of an MB's residual and
+                modes, K2/K6's of its samples and table words): the
+                hand-off chain alone
+  no_chroma     K1/K5 and K2/K6 without the chroma body: the luma chain
+                alone (the chroma parts still stage their inputs)
+  no_luma       K1/K5 and K2/K6 without the luma body: the chroma chain
+                alone (the luma parts still stage theirs)
   one_per_sm    the grid cut to one block per SM
 For each variant it also counts the L1-invalidating CCTL instructions
 in the compiled code (cuobjdump -sass).  Prints a table, and writes the
@@ -82,13 +83,14 @@ SOURCES = ("intra_phase.cu", "deblock_phase.cu", "intra_raster.cu",
 PAIRS = ((1, intra_phase, 2, deblock_phase),
          (5, intra_raster, 6, deblock_raster))
 INTRA = ("intra_phase.cu", "intra_raster.cu")
-DEBLOCK = ("deblock_phase.cu", "deblock_raster.cu")
 LUMA = "intra::intra_mb_luma(a, sm, buf, b, mx, my, kind, t);"
 CHROMA = "intra::intra_mb_chroma(a, sm, buf, b, mx, my, kind, t);"
-LINE = "deblock::deblock_line(a, b, pl, mx, my, d, k);"
-# the first statements of intra_mb.cuh's stage and describe
+# the first statements of intra_mb.cuh's stage and describe, and of
+# deblock_mb.cuh's stage and mb_body
 STAGE = "  Stage& st = sm.stage[buf];\n  const long mbo"
 DESCRIBE = "  if (t < 32 || t >= 64) return;\n  copy_wait();"
+DB_STAGE = "  const long m = (long)b * a.mb_w * a.mb_h + my * a.mb_w + mx;\n"
+DB_BODY = "  gather(a, s, b, mx, my, part, carried, lane);\n"
 # variant -> [(file, text, replacement)]; each text must occur in the file
 VARIANTS = {
     "as_built": [],
@@ -106,9 +108,13 @@ VARIANTS = {
     "no_bodies": [("intra_mb.cuh", STAGE, "  return;\n" + STAGE),
                   ("intra_mb.cuh", DESCRIBE, "  return;\n" + DESCRIBE)]
     + [(f, LUMA, ";") for f in INTRA]
-    + [(f, CHROMA, ";") for f in INTRA] + [(f, LINE, "") for f in DEBLOCK],
-    "no_chroma": [(f, CHROMA, ";") for f in INTRA],
-    "no_luma": [(f, LUMA, ";") for f in INTRA],
+    + [(f, CHROMA, ";") for f in INTRA]
+    + [("deblock_mb.cuh", DB_STAGE, "  return;\n" + DB_STAGE),
+       ("deblock_mb.cuh", DB_BODY, "  return;\n" + DB_BODY)],
+    "no_chroma": [(f, CHROMA, ";") for f in INTRA]
+    + [("deblock_mb.cuh", DB_BODY, "  if (part == 1) return;\n" + DB_BODY)],
+    "no_luma": [(f, LUMA, ";") for f in INTRA]
+    + [("deblock_mb.cuh", DB_BODY, "  if (part == 0) return;\n" + DB_BODY)],
     "one_per_sm": [("wavefront.cuh", "const long g = (long)sms * per_sm;",
                     "const long g = sms;")],
 }
