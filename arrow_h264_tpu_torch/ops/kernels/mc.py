@@ -6,15 +6,15 @@ Replace arrow_h264_tpu/ops/pallas/mc_kernel.py::mc_luma_pallas_batch and
 mc_luma_plain and ::mc_chroma_plain; the weighted combine after them
 (ops/inter.py::mc_combine) is plain PyTorch on every device.
 
-The kernels are bound by device-memory bytes.  Luma runs one thread per
-4-sample row of a 4x4 cell: the cell's slot and MV are read once, the
-reference as aligned 32-bit words joined by a shift, and the four uint8
-samples are stored as one word.  Chroma runs one thread per 2x2 chroma
-cell for both planes, its vertical MV moved by the slot's `cvoff` (the
-cross-parity offset of field pictures; zeros for frames).  The word reads
-need a 4-byte aligned DPB and the one 8-byte MV load an 8-byte aligned
-`mv`: the wrappers check both and raise, and never fall back to the plain
-version on a CUDA tensor.
+A block of each kernel takes a strip of 8 MBs of one MB row and both
+lists: it copies the strip's motion into shared memory in one pass, then
+each thread, one a (list, 4x4 cell), stages its cell's reference rows
+with cp.async, waits once and computes from shared memory.  Chroma
+computes both planes, its vertical MV moved by the slot's `cvoff` (the
+cross-parity offset of field pictures; zeros for frames).  The kernels
+need a 4-byte aligned DPB and an 8-byte aligned `mv` (they stage other
+alignments in smaller copies): the wrappers check both and raise, and
+never fall back to the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations

@@ -28,7 +28,9 @@ Phases (each prints a line; any failure exits non-zero):
               of its own: ~330 MB of DPB, far beyond the 50 MB L2), also
               with every cell at one quarter-sample position and with
               one MV and slot for every cell of a list (reads that share
-              sectors); all exact and timed.  K4 takes each slot's
+              sectors); MBs split 16x8, 8x16 or 8x8 with one MV and slot
+              a part (tools/mc_bench.py's partitions family) at B = 1
+              and B = 8; all exact and timed.  K4 takes each slot's
               cross-parity chroma offset (cvoff): zeros as frames pass
               it, and random -2, 0 or +2 a slot at B = 1 and B = 8 (the
               fields phase's part (a))
@@ -170,8 +172,11 @@ and `bound_ms_b4`: the same for four 1080p frames in one launch.  K3 and
 K4 also get `ms_b8` and `bound_ms_b8` (eight 1080p streams in one launch)
 and `ms_cold` (L2 flushed before each launch); K4 also `ms_cvoff`,
 `bound_ms_cvoff`, `ms_b8_cvoff` and `bound_ms_b8_cvoff` (random
-cross-parity offsets).  `launches_fields` counts each kernel's launches
-in the fields phase's main path: BatchDecoder(4) over the 1080i lanes
+cross-parity offsets).  K3 and K4 also get `ms_partitions`,
+`bound_ms_partitions`, `ms_b8_partitions` and `bound_ms_b8_partitions`
+(MBs split into 16x8, 8x16 or 8x8 parts, at B = 1 and B = 8).
+`launches_fields` counts each kernel's launches in the fields phase's
+main path: BatchDecoder(4) over the 1080i lanes
 with the kernel's order (8 rounds, 6 with an inter lane);
 `launches_features` in the features phase's: every feature stream through
 Decoder with the kernel's order, one after another; `launches_conformance`
@@ -1669,6 +1674,17 @@ def main() -> None:
     ms, bound_ms = mc_case("cvoff", dpbs, mv, rs, random_cvoff(1),
                            ("mc_chroma",))["mc_chroma"]
     results["mc_chroma"].update(ms_cvoff=ms, bound_ms_cvoff=bound_ms)
+
+    # K3 + K4 on MBs split 16x8, 8x16 or 8x8, one MV and slot a part
+    from tools.mc_bench import motion as mc_motion
+
+    def partitions(B):
+        return (torch.from_numpy(a).to(dev) for a in mc_motion(
+            "partitions", MB_W, MB_H, B, SEED + 30))
+
+    for key, (ms, bound_ms) in mc_case("partitions", dpbs,
+                                       *partitions(1)).items():
+        results[key].update(ms_partitions=ms, bound_ms_partitions=bound_ms)
     del dpbs
 
     # K3 + K4 on the smoke stream's own pictures
@@ -1698,6 +1714,10 @@ def main() -> None:
     one_slot = torch.arange(2, dtype=torch.int32, device=dev)
     mc_case(f"B={B8} one MV and slot a list", dpbs,
             torch.zeros_like(mv) + frac, torch.where(rs >= 0, one_slot, rs))
+    for key, (ms, bound_ms) in mc_case(f"B={B8} partitions", dpbs,
+                                       *partitions(B8)).items():
+        results[key].update(ms_b8_partitions=ms,
+                            bound_ms_b8_partitions=bound_ms)
     del dpbs
 
     # ---- the main paths: decode the committed 1080p High stream with each

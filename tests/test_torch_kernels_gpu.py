@@ -35,6 +35,7 @@ from arrow_h264_tpu_torch.ops.synthetic import (
 from arrow_h264_tpu_torch.ops.transforms import (
     make_ws_consts, residual_planes,
 )
+from tools.mc_bench import SPLITS, partitioned_motion
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +48,10 @@ STRIP_4K = (240, 4)                    # 3840x64: the width of 3840x2160
 SIZES = [(7, 5), (22, 18), STRIP_4K]   # ragged grid edges; CIF; 4K strip
 RASTER_SIZES = [(7, 5), (120, 68), STRIP_4K]   # ... 1080p; 4K strip
 MC_SIZES = [(1, 1), (7, 5), (22, 18), (120, 68), STRIP_4K]
+MC_MOTION = ["synthetic", "wild", "edge", "partitions", "edge_mbs"]
+# widths that are not a multiple of the MC kernels' strip of MBs (SW = 8
+# in csrc/mc.cu), and a one-row picture
+MC_STRIPS = [(7, 5), (1, 6), (6, 1)]
 MC_SLOTS = 3
 
 
@@ -338,10 +343,33 @@ def _mc_motion(mb_w, mb_h, B, mvs, seed, dev):
     integer MV parts at the columns and rows where the reads reach each
     edge of the 32-sample padding and just past it, and +-512.  wild and
     edge draw each list's slot from -1 (unused) .. MC_SLOTS + 1 (a slot
-    >= S clamps to S - 1)."""
+    >= S clamps to S - 1).  partitions: each MB one MV and slot a list,
+    or split 16x8, 8x16, 8x8 or into its 16 cells, one MV and slot a part
+    (slots up to MC_SLOTS + 1), so the kernels' shared windows and their
+    per-cell windows meet in one block; edge_mbs: partitions, with every
+    MB on the picture's border reading, with one MV for the MB, from
+    beyond the padding on the side of that border."""
     n = mb_w * mb_h
     rng = np.random.default_rng(seed)
     shape = (B, n, 4, 4, 2, 2)
+    if mvs in ("partitions", "edge_mbs"):
+        mv, rs = (np.stack(a) for a in zip(*(
+            partitioned_motion(mb_w, mb_h, seed + i, tuple(SPLITS),
+                               n_slots=MC_SLOTS + 2, bi_frac=0.5)
+            for i in range(B))))
+        if mvs == "edge_mbs":
+            mx, my = np.meshgrid(np.arange(mb_w), np.arange(mb_h))
+            side = np.stack([(mx == mb_w - 1).astype(int) - (mx == 0),
+                             (my == mb_h - 1).astype(int) - (my == 0)],
+                            -1).reshape(n, 2)          # [n, (x, y)]
+            far = rng.integers(PAD + 1, PAD + 40, (B, n, 1, 1, 2, 2))
+            out = side[None, :, None, None, None] * (far * 4) \
+                + rng.integers(0, 4, (B, n, 1, 1, 2, 2))
+            border = (side != 0).any(-1)[None, :, None, None, None, None]
+            mv = np.where(border, np.broadcast_to(out, mv.shape), mv)
+            rs = np.where(border[..., 0], rs[:, :, :1, :1], rs)
+        return (torch.from_numpy(mv.astype(np.int32)).to(dev),
+                torch.from_numpy(rs.astype(np.int32)).to(dev))
     if mvs == "synthetic":
         abis = [synthetic_batch(mb_w, mb_h, seed + i, dev, inter=True,
                                 n_slots=MC_SLOTS, bi_frac=0.5)[1]
@@ -379,7 +407,7 @@ def _mc_equal(dy, dc, mv, rs, mb_w, mb_h, cvoff=None):
 
 
 @pytest.mark.parametrize("mb_w,mb_h", MC_SIZES)
-@pytest.mark.parametrize("mvs", ["synthetic", "wild", "edge"])
+@pytest.mark.parametrize("mvs", MC_MOTION)
 @pytest.mark.parametrize("B", [1, 3])
 def test_mc_kernels(dev, mb_w, mb_h, mvs, B):
     seed = 5 + mb_w + 3 * B
@@ -389,7 +417,7 @@ def test_mc_kernels(dev, mb_w, mb_h, mvs, B):
 
 
 @pytest.mark.parametrize("mb_w,mb_h", MC_SIZES)
-@pytest.mark.parametrize("mvs", ["synthetic", "wild", "edge"])
+@pytest.mark.parametrize("mvs", MC_MOTION)
 @pytest.mark.parametrize("B", [1, 3])
 def test_mc_chroma_cvoff(dev, mb_w, mb_h, mvs, B):
     """K4 with a cross-parity chroma offset of -2, 0 or +2 per lane and
@@ -402,6 +430,42 @@ def test_mc_chroma_cvoff(dev, mb_w, mb_h, mvs, B):
     cvoff = (torch.randint(-1, 2, (B, MC_SLOTS), generator=g, device=dev,
                            dtype=torch.int32) * 2)
     _mc_equal(dy, dc, mv, rs, mb_w, mb_h, cvoff)
+
+
+@pytest.mark.parametrize("mb_w,mb_h", MC_STRIPS)
+@pytest.mark.parametrize("mvs", MC_MOTION)
+@pytest.mark.parametrize("B", [1, 3])
+def test_mc_kernels_strips(dev, mb_w, mb_h, mvs, B):
+    """Pictures whose last strip of MBs is cut short, with random
+    cross-parity chroma offsets."""
+    seed = 9 + mb_w + 3 * B
+    dy, dc = _mc_dpbs(mb_w, mb_h, B, seed, dev)
+    mv, rs = _mc_motion(mb_w, mb_h, B, mvs, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cvoff = (torch.randint(-1, 2, (B, MC_SLOTS), generator=g, device=dev,
+                           dtype=torch.int32) * 2)
+    _mc_equal(dy, dc, mv, rs, mb_w, mb_h, cvoff)
+
+
+@pytest.mark.parametrize("mvs", ["synthetic", "partitions", "edge_mbs"])
+def test_mc_kernels_unaligned_copies(dev, mvs):
+    """A DPB 4-byte but not 8-byte aligned and an mv 8-byte but not
+    16-byte aligned (what the wrappers take): the kernels stage them in
+    4-byte copies, and still equal the plain versions."""
+    dy, dc = _mc_dpbs(7, 5, 2, 3, dev)
+    mv, rs = _mc_motion(7, 5, 2, mvs, 3, dev)
+
+    def shifted(t, by):
+        flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+        view = flat[by:by + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    dy4, dc4 = shifted(dy, 4), shifted(dc, 4)
+    mv8, rs4 = shifted(mv, 2), shifted(rs, 1)
+    assert dy4.data_ptr() % 8 == 4 and dc4.data_ptr() % 8 == 4
+    assert mv8.data_ptr() % 16 == 8 and rs4.data_ptr() % 16 == 4
+    _mc_equal(dy4, dc4, mv8, rs4, 7, 5)
 
 
 def test_mc_chroma_refuses_bad_cvoff(dev):
