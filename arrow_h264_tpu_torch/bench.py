@@ -1,11 +1,27 @@
 """Throughput bench of the PyTorch port on one GPU.
 
     python -m arrow_h264_tpu_torch.bench [--stage NAME ...] [--batch B]
-        [--order phase|raster] [--upload wire|dense] [--repeats R]
-        [--out FILE.json]
+        [--streams qp26|broadcast|adversarial|uhd] [--order phase|raster]
+        [--upload wire|dense] [--repeats R] [--out FILE.json]
 
 The port's counterpart of the JAX package's `bench.py` and
-`bench_host.py`, in one process.  Stages, in this order (default: all):
+`bench_host.py`, in one process.
+
+--streams picks the committed streams (tests/data) that the lanes of
+host_parse_fps, e2e_fps and e2e_device_resident_fps cycle through:
+
+  qp26         (default) smoke_1080p_high, batch_1080p_s1..s3: 1920x1080,
+               High/CABAC, qp 26, noise 3, 6/6/5/4 frames
+               (tools/smoke_stream.py).
+  broadcast    bench_broadcast_s0..s3: the JAX package's bench.py streams,
+               1920x1088, High/CABAC, qp 30, noise 3, 12 frames, one IDR
+               and 11 P/B pictures with 4 references (tools/bench_streams.py).
+  adversarial  bench_adversarial as every lane: bench_host.py's worst-case
+               bin density, 1920x1088, qp 26, noise 12, 8 frames.
+  uhd          conf_c5 as every lane: 3840x2160, qp 26, 3 frames
+               (tools/conformance_streams.py); run it with --batch 4.
+
+Stages, in this order (default: all):
 
   host_parse_fps           the lanes' host pipeline with no device work:
                            parse, ABI pack, wire pack, spec merge and emit
@@ -16,13 +32,20 @@ The port's counterpart of the JAX package's `bench.py` and
                            projected_fps_at_cores = min(cores x fps,
                            1 / GIL-held seconds a frame) for the cores of
                            the host that runs it.  A host metric.
+  host_parse_adversarial_fps
+                           the same over bench_adversarial alone, whatever
+                           --streams says (bench_host.py's adversarial_*
+                           numbers).  A host metric.
   d2h_link_GBps            one [B, 1088, 1920] uint8 tensor copied from the
                            card to pageable and to pinned host memory.
   e2e_fps                  BatchDecoder(B) over lanes that cycle through
-                           the four committed 1080p streams, frames out
-                           as numpy, host clock; every frame's MD5 must
-                           equal the stream's golden, and the frame count
-                           must be exact.
+                           the set's streams, frames out as numpy, host
+                           clock; every frame's MD5 must equal the
+                           stream's golden, and the frame count must be
+                           exact.  The line also holds ms a round and the
+                           last pass's lane stats a round (the lanes' sum
+                           of host parse, device dispatch and output-copy
+                           seconds, the main thread's upload).
   e2e_device_resident_fps  the same lanes with materialize=False: on_frame
                            takes each frame's int64 plane sums on the
                            device and drops the planes, with a sync every
@@ -42,11 +65,19 @@ The port's counterpart of the JAX package's `bench.py` and
                            the events then hold the host's enqueue gaps);
                            every call's output MD5 must equal the first's.
 
+Before the timed passes each e2e stage decodes a prefix of every lane
+(kernel builds), WARM_AUS pictures or one fewer than the shortest lane
+has, so that it never decodes a whole stream (uhd's 3-picture lanes warm
+up on 2); its pictures and seconds are in the line.
+
 Each stage prints one JSON line (median, min and max over R, R, frames and
-rounds where they apply, order, upload, B and the card's nvidia-smi name
-and power limit); the last line holds every stage's median by name, the
-card and the host's cores.  Without a CUDA device every stage but
-host_parse_fps exits non-zero: no device metric is computed on the CPU.
+rounds where they apply, the stream set, its streams and kbit a frame,
+order, upload, B and the card's nvidia-smi name and power limit); the
+last line holds every stage's median by name (the host stages' GIL share
+and projection too, the adversarial one's prefixed adversarial_), the
+stream set, the card, the host's cores and the run's wall seconds.  Without a CUDA device every
+stage but the two host stages exits non-zero: no device metric is
+computed on the CPU.
 A golden mismatch, a failed lane or a wrong frame count exits non-zero.
 The stage functions take `device`, so the tests run them on the CPU at
 small sizes.
@@ -82,14 +113,26 @@ from .ops.wire import emit_wire, merge_specs, pack_wire_raw
 from .parallel.batch import BatchDecoder
 
 DATA = Path(__file__).resolve().parent.parent / "tests" / "data"
-# High/CABAC, 8x8, weighted P/B, 2 B-frames, 4 refs, qp 26, noise 3; 6, 6,
-# 5 and 4 frames (tools/smoke_stream.py)
-STREAMS = [DATA / f"{n}.264" for n in (
-    "smoke_1080p_high", "batch_1080p_s1", "batch_1080p_s2", "batch_1080p_s3")]
-STAGES = ("host_parse_fps", "d2h_link_GBps", "e2e_fps",
-          "e2e_device_resident_fps", "device_recon_fps", "device_wildmv_fps",
-          "device_intra_fps")
-HOST_STAGES = ("host_parse_fps",)
+# --streams: the set's streams (module docstring), each DATA/NAME.264 with
+# its golden DATA/NAME.json
+STREAM_SETS = {
+    "qp26": ("smoke_1080p_high", "batch_1080p_s1", "batch_1080p_s2",
+             "batch_1080p_s3"),
+    "broadcast": tuple(f"bench_broadcast_s{s}" for s in range(4)),
+    "adversarial": ("bench_adversarial",),
+    "uhd": ("conf_c5",) * 4,
+}
+DEFAULT_STREAMS = "qp26"
+STAGES = ("host_parse_fps", "host_parse_adversarial_fps", "d2h_link_GBps",
+          "e2e_fps", "e2e_device_resident_fps", "device_recon_fps",
+          "device_wildmv_fps", "device_intra_fps")
+HOST_STAGES = ("host_parse_fps", "host_parse_adversarial_fps")
+# the stages whose lanes cycle through the --streams set
+LANE_STAGES = ("host_parse_fps", "e2e_fps", "e2e_device_resident_fps")
+# the summary's prefix of each host stage's gil_hold_pct and
+# projected_fps_at_cores (bench_host.py's adversarial_* names)
+HOST_PREFIX = {"host_parse_fps": "", "host_parse_adversarial_fps":
+               "adversarial_"}
 BATCH = 32
 WILDMV_BATCH = 8
 REPEATS = 5
@@ -115,6 +158,21 @@ def load_lanes(paths) -> list[Lane]:
     return [Lane(p.stem, p.read_bytes(),
                  json.loads(p.with_suffix(".json").read_text())["md5"])
             for p in map(Path, paths)]
+
+
+def set_paths(name: str) -> list[Path]:
+    """The stream files of the --streams set `name`."""
+    return [DATA / f"{n}.264" for n in STREAM_SETS[name]]
+
+
+def cycle_lanes(lanes, batch: int) -> list[Lane]:
+    """`batch` lanes that cycle through `lanes`."""
+    return [lanes[i % len(lanes)] for i in range(batch)]
+
+
+def kbit_per_frame(lanes, frames: int) -> float:
+    """The lanes' coded kbit over the frames they decode to."""
+    return sum(8 * len(lane.data) for lane in lanes) / frames / 1e3
 
 
 def truncate_aus(data: bytes, k: int) -> bytes:
@@ -224,7 +282,20 @@ def host_parse_fps(lanes, repeats: int = REPEATS,
             "repeats": repeats, "frames": n,
             "gil_hold_pct": spread(gil),
             "projected_fps_at_cores": spread(proj), "upload": upload,
-            "streams": [lane.name for lane in lanes], "host": host}
+            "streams": [lane.name for lane in lanes],
+            "kbit_per_frame": kbit_per_frame(lanes, n), "host": host}
+
+
+def host_parse_adversarial_fps(repeats: int = REPEATS, upload: str = "wire",
+                               lanes=None) -> dict:
+    """Stage host_parse_adversarial_fps: host_parse_fps over the adversarial
+    set (`lanes`, default its committed stream)."""
+    if lanes is None:
+        lanes = load_lanes(set_paths("adversarial"))
+    res = host_parse_fps(lanes, repeats, upload)
+    return {**res, "stage": "host_parse_adversarial_fps",
+            "metric": "host_parse_adversarial_fps",
+            "stream_set": "adversarial"}
 
 
 # ---- device->host link -----------------------------------------------------
@@ -260,8 +331,8 @@ def d2h_link_GBps(batch: int = BATCH, repeats: int = REPEATS,
 
 def _batch_pass(datas, device, order, upload, on_frame=None):
     """One BatchDecoder pass over `datas`, host-clocked from the call to
-    the device's last work: (per-lane frames, seconds, rounds).  Raises on
-    a failed lane."""
+    the device's last work: (per-lane frames, seconds, rounds, the lanes'
+    stats summed).  Raises on a failed lane."""
     materialize = on_frame is None
     with BatchDecoder(len(datas), device=device, order=order, upload=upload,
                       materialize=materialize, on_frame=on_frame) as bd:
@@ -275,7 +346,10 @@ def _batch_pass(datas, device, order, upload, on_frame=None):
     for i, e in enumerate(bd.errors):
         if e is not None:
             raise BenchError(f"lane {i} failed: {e!r}")
-    return frames, dt, bd.rounds
+    stats = {k: sum(st[k] for st in bd.stats) for k in (
+        "host_parse_s", "device_dispatch_s", "emit_sync_s")}
+    stats["upload_s"] = bd.upload_s
+    return frames, dt, bd.rounds, stats
 
 
 def _check_golden(lanes, frames) -> None:
@@ -296,32 +370,47 @@ def plane_sums(frames) -> list[list[tuple]]:
              for f in fr] for fr in frames]
 
 
-def _lanes(lanes, batch: int) -> list[Lane]:
-    return [lanes[i % len(lanes)] for i in range(batch)]
+def warm_aus(lanes) -> int:
+    """The warm-up's prefix: WARM_AUS pictures, or one fewer than the
+    shortest lane's frames (at least one), so that it never decodes a
+    whole stream."""
+    return max(1, min(WARM_AUS, min(len(lane.md5) for lane in lanes) - 1))
 
 
-def _warm_up(lanes, device, order, upload, on_frame=None) -> None:
-    """A pass over each lane's first WARM_AUS pictures (kernel builds,
-    allocator growth), whose decoder is gone before the caller's
-    allocates."""
-    frames, _, _ = _batch_pass([truncate_aus(lane.data, WARM_AUS)
-                                for lane in lanes], device, order, upload,
-                               on_frame)
-    want = sum(min(WARM_AUS, len(lane.md5)) for lane in lanes)
-    if sum(map(len, frames)) != want:
-        raise BenchError(f"warm-up: {sum(map(len, frames))} frames, "
-                         f"expected {want}")
+def _warm_up(lanes, device, order, upload, on_frame=None) -> dict:
+    """A pass over each lane's first warm_aus(lanes) pictures (kernel
+    builds), whose decoder is gone before the caller's allocates:
+    {"aus", "frames", "seconds"}."""
+    k = warm_aus(lanes)
+    t0 = time.perf_counter()
+    frames, _, _, _ = _batch_pass([truncate_aus(lane.data, k)
+                                   for lane in lanes], device, order, upload,
+                                  on_frame)
+    secs = time.perf_counter() - t0
+    n = sum(map(len, frames))
+    want = sum(min(k, len(lane.md5)) for lane in lanes)
+    if n != want:
+        raise BenchError(f"warm-up: {n} frames, expected {want}")
     del frames
     _release(device)
+    return {"aus": k, "frames": n, "seconds": secs}
 
 
-def _e2e_result(stage, secs, n, rounds, lanes, order, upload) -> dict:
+def _e2e_result(stage, secs, n, rounds, lanes, order, upload, warm,
+                stats) -> dict:
     return {"stage": stage, "metric": stage, "unit": "frames/s",
             **spread([n / s for s in secs]), "repeats": len(secs),
             "frames": n, "rounds": rounds, "seconds": spread(secs),
-            "kbit_per_frame": sum(8 * len(lane.data) for lane in lanes)
-            / n / 1e3, "batch": len(lanes), "order": order,
-            "upload": upload}
+            "ms_per_round": spread([1e3 * s / rounds for s in secs]),
+            "streams": sorted({lane.name for lane in lanes}),
+            "kbit_per_frame": kbit_per_frame(lanes, n), "batch": len(lanes),
+            "order": order, "upload": upload, "warm_up": warm,
+            # the last pass's lane stats a round: host parse and pack (the
+            # lanes' sum, run on pool_threads at once), device dispatch,
+            # output copies, and the main thread's upload
+            "stats_ms_per_round": {k.removesuffix("_s") + "_ms":
+                                   1e3 * v / rounds for k, v in stats.items()},
+            "pool_threads": max(1, min(len(lanes), os.cpu_count() or 1))}
 
 
 def e2e_fps(lanes, batch: int = BATCH, repeats: int = REPEATS,
@@ -329,20 +418,20 @@ def e2e_fps(lanes, batch: int = BATCH, repeats: int = REPEATS,
             upload: str = "wire") -> tuple[dict, list]:
     """Stage e2e_fps over `batch` lanes cycling through `lanes`: (result,
     the frames' plane_sums of the last pass)."""
-    lanes = _lanes(lanes, batch)
-    _warm_up(lanes, device, order, upload)
+    lanes = cycle_lanes(lanes, batch)
+    warm = _warm_up(lanes, device, order, upload)
     secs = []
     for _ in range(repeats):
-        frames, dt, rounds = _batch_pass([lane.data for lane in lanes],
-                                         device, order, upload)
+        frames, dt, rounds, stats = _batch_pass(
+            [lane.data for lane in lanes], device, order, upload)
         secs.append(dt)
         _check_golden(lanes, frames)
         sums = plane_sums(frames)
         n = sum(map(len, frames))
         del frames
         _release(device)
-    return _e2e_result("e2e_fps", secs, n, rounds, lanes, order,
-                       upload), sums
+    return _e2e_result("e2e_fps", secs, n, rounds, lanes, order, upload,
+                       warm, stats), sums
 
 
 def e2e_device_resident_fps(lanes, batch: int = BATCH,
@@ -352,7 +441,7 @@ def e2e_device_resident_fps(lanes, batch: int = BATCH,
     """Stage e2e_device_resident_fps.  expect: the plane_sums of the same
     lanes' materialized frames (e2e_fps's); None makes one untimed
     materialized pass, checked against the goldens, for them."""
-    lanes = _lanes(lanes, batch)
+    lanes = cycle_lanes(lanes, batch)
     sums: list = []
 
     def consume(lane, f):
@@ -365,10 +454,10 @@ def e2e_device_resident_fps(lanes, batch: int = BATCH,
             _sync([s.device])
         return s
 
-    _warm_up(lanes, device, order, upload, consume)
+    warm = _warm_up(lanes, device, order, upload, consume)
     if expect is None:
-        frames, _, _ = _batch_pass([lane.data for lane in lanes], device,
-                                   order, upload)
+        frames, _, _, _ = _batch_pass([lane.data for lane in lanes], device,
+                                      order, upload)
         _check_golden(lanes, frames)
         expect = plane_sums(frames)
         del frames
@@ -376,8 +465,8 @@ def e2e_device_resident_fps(lanes, batch: int = BATCH,
     secs = []
     for _ in range(repeats):
         sums.clear()
-        frames, dt, rounds = _batch_pass([lane.data for lane in lanes],
-                                         device, order, upload, consume)
+        frames, dt, rounds, stats = _batch_pass(
+            [lane.data for lane in lanes], device, order, upload, consume)
         secs.append(dt)
         got = [[tuple(s.tolist()) for s in fr] for fr in frames]
         if got != expect:
@@ -388,7 +477,7 @@ def e2e_device_resident_fps(lanes, batch: int = BATCH,
         del frames
         _release(device)
     return _e2e_result("e2e_device_resident_fps", secs, n, rounds, lanes,
-                       order, upload)
+                       order, upload, warm, stats)
 
 
 # ---- device reconstruction on synthetic pictures -----------------------------
@@ -523,14 +612,17 @@ def device_fps(kind: str, batch: int = BATCH, repeats: int = REPEATS,
 
 # ---- command line ------------------------------------------------------------
 
-def run(stages, lanes, batch: int, repeats: int, order: str, upload: str,
-        gpu: dict | None) -> list[dict]:
-    """Run `stages` (in STAGES order) on the card `gpu` (of gpu_info) and
-    print each one's result line."""
+def run(stages, stream_set: str, batch: int, repeats: int, order: str,
+        upload: str, gpu: dict | None) -> list[dict]:
+    """Run `stages` (in STAGES order) over the --streams set `stream_set`
+    on the card `gpu` (of gpu_info) and print each one's result line."""
+    lanes = load_lanes(set_paths(stream_set))
     results, sums = [], None
     for name in (s for s in STAGES if s in stages):
         if name == "host_parse_fps":
             res = host_parse_fps(lanes, repeats, upload)
+        elif name == "host_parse_adversarial_fps":
+            res = host_parse_adversarial_fps(repeats, upload)
         elif name == "d2h_link_GBps":
             res = d2h_link_GBps(batch, repeats)
         elif name == "e2e_fps":
@@ -543,6 +635,8 @@ def run(stages, lanes, batch: int, repeats: int, order: str, upload: str,
             res = device_fps(kind, min(batch, WILDMV_BATCH)
                              if kind == "wildmv" else batch, repeats,
                              "cuda", order)
+        if name in LANE_STAGES:
+            res["stream_set"] = stream_set
         if name not in HOST_STAGES:
             res["device"] = gpu
         print(json.dumps(res), flush=True)
@@ -550,18 +644,19 @@ def run(stages, lanes, batch: int, repeats: int, order: str, upload: str,
     return results
 
 
-def summary(results, order: str, upload: str, batch: int,
-            repeats: int) -> dict:
-    """The last line: each stage's median by name (the host stage's three
-    metrics), the card and the host."""
+def summary(results, order: str, upload: str, batch: int, repeats: int,
+            stream_set: str = DEFAULT_STREAMS) -> dict:
+    """The last line: each stage's median by name (each host stage's three
+    metrics, the adversarial one's prefixed adversarial_), the stream set,
+    the card and the host."""
     med = {}
     for r in results:
         med[r["metric"]] = r["median"]
         for k in ("gil_hold_pct", "projected_fps_at_cores"):
             if k in r:
-                med[k] = r[k]["median"]
-    return {"medians": med, "order": order, "upload": upload,
-            "batch": batch, "repeats": repeats,
+                med[HOST_PREFIX[r["metric"]] + k] = r[k]["median"]
+    return {"medians": med, "stream_set": stream_set, "order": order,
+            "upload": upload, "batch": batch, "repeats": repeats,
             "device": next((r["device"] for r in results if "device" in r),
                            None),
             "host_cores": os.cpu_count()}
@@ -574,6 +669,9 @@ def main(argv=None) -> None:
     ap.add_argument("--stage", action="append", choices=STAGES,
                     help="a stage to run (repeatable; default all)")
     ap.add_argument("--batch", type=int, default=BATCH, metavar="B")
+    ap.add_argument("--streams", choices=STREAM_SETS, default=DEFAULT_STREAMS,
+                    help="the stream set the lanes cycle through (default "
+                    f"{DEFAULT_STREAMS})")
     ap.add_argument("--order", choices=sorted(ORDERS), default="phase")
     ap.add_argument("--upload", choices=UPLOADS, default="wire")
     ap.add_argument("--repeats", type=int, default=REPEATS, metavar="R")
@@ -585,16 +683,18 @@ def main(argv=None) -> None:
     need = [s for s in stages if s not in HOST_STAGES]
     if need and not torch.cuda.is_available():
         sys.exit(f"bench: {', '.join(need)} need a CUDA device, and "
-                 "torch.cuda.is_available() is False; only host_parse_fps "
-                 "runs without one")
-    lanes = load_lanes(STREAMS)
+                 "torch.cuda.is_available() is False; only "
+                 f"{' and '.join(HOST_STAGES)} run without one")
+    t0 = time.perf_counter()
     try:
-        results = run(stages, lanes, args.batch, args.repeats, args.order,
-                      args.upload, gpu_info() if need else None)
+        results = run(stages, args.streams, args.batch, args.repeats,
+                      args.order, args.upload, gpu_info() if need else None)
     except BenchError as e:
         sys.exit(f"bench: {e}")
     last = summary(results, args.order, args.upload, args.batch,
-                   args.repeats)
+                   args.repeats, args.streams)
+    # the stages' wall seconds, kernel builds included: what a cell costs
+    last["run_s"] = time.perf_counter() - t0
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"stages": results, "summary": last},

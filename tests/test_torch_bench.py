@@ -1,8 +1,9 @@
 """The port's bench (arrow_h264_tpu_torch.bench) on the CPU at small sizes:
 each stage function's result, its checks (goldens, frame counts, the
 device-resident sums against the materialized frames) and the command
-line's refusal to run a device stage without a card.  The cuda-marked
-test runs every stage once on the card:
+line's refusal to run a device stage without a card; the golden checks
+also on the first picture of each new --streams set.  The cuda-marked
+test runs every stage once on the card over each --streams set:
 
     python -m pytest --noconftest -m cuda tests/test_torch_bench.py
 """
@@ -97,32 +98,51 @@ def test_e2e_fps(lanes, e2e):
                                       for i in range(B)]
 
 
-def _edit_golden(tmp_path, how):
+def _edit_golden(tmp_path, how, streams=None):
     """The QCIF lanes with lane 1's golden edited: one MD5 altered, or one
-    dropped."""
-    paths = []
-    for p in QCIF:
-        for q in (p, p.with_suffix(".json")):
-            shutil.copy(q, tmp_path / q.name)
-        paths.append(tmp_path / p.name)
-    j = paths[1].with_suffix(".json")
+    dropped.  With a --streams set: the first picture of the set's first
+    stream, its first MD5 altered (a whole 1080p or 4K stream is too slow
+    for the plain versions)."""
+    if streams is None:
+        paths, edit = [], 1
+        for p in QCIF:
+            for q in (p, p.with_suffix(".json")):
+                shutil.copy(q, tmp_path / q.name)
+            paths.append(tmp_path / p.name)
+    else:
+        lane = bench.load_lanes(bench.set_paths(streams))[0]
+        paths, edit = [tmp_path / f"{lane.name}.264"], 0
+        paths[0].write_bytes(bench.truncate_aus(lane.data, 1))
+        paths[0].with_suffix(".json").write_text(
+            json.dumps({"md5": lane.md5[:1]}))
+    j = paths[edit].with_suffix(".json")
     g = json.loads(j.read_text())
     if how == "altered":
-        g["md5"][1] = "0" * 32
+        g["md5"][edit] = "0" * 32
     else:
         g["md5"].pop()
     j.write_text(json.dumps(g))
     return bench.load_lanes(paths)
 
 
-@pytest.mark.parametrize("stage,how", [
-    ("e2e_fps", "altered"), ("e2e_fps", "dropped"),
-    ("e2e_device_resident_fps", "altered")])
-def test_e2e_golden_mismatch_raises(tmp_path, stage, how):
-    bad = _edit_golden(tmp_path, how)
+@pytest.mark.parametrize("stage,how,streams", [
+    pytest.param("e2e_fps", "altered", None, id="e2e_fps-altered"),
+    pytest.param("e2e_fps", "dropped", None, id="e2e_fps-dropped"),
+    pytest.param("e2e_device_resident_fps", "altered", None,
+                 id="e2e_device_resident_fps-altered"),
+    *(pytest.param("e2e_fps", "altered", s, id=f"e2e_fps-altered-{s}")
+      for s in ("broadcast", "adversarial", "uhd"))])
+def test_e2e_golden_mismatch_raises(tmp_path, stage, how, streams):
+    bad = _edit_golden(tmp_path, how, streams)
     fn = getattr(bench, stage)
-    with pytest.raises(bench.BenchError, match="lane 1"):
-        fn(bad, B, repeats=1, device="cpu")
+    if streams is None:
+        with pytest.raises(bench.BenchError, match="lane 1"):
+            fn(bad, B, repeats=1, device="cpu")
+    else:
+        name = bench.STREAM_SETS[streams][0]
+        with pytest.raises(bench.BenchError, match=rf"lane 0 \({name}\): "
+                           r"MD5 differs from the golden at frames \[0\]"):
+            fn(bad, 1, repeats=1, device="cpu")
 
 
 def test_device_resident_sums_equal_materialized(lanes, e2e):
@@ -217,25 +237,38 @@ def test_cli_without_cuda_exits_nonzero():
 
 
 @pytest.mark.cuda
-def test_bench_cuda(tmp_path):
-    """Every stage once on the card at B = 2, R = 1, through the command
-    line: a line a stage, then the summary; every check passed (rc 0)."""
+@pytest.mark.parametrize("streams", list(bench.STREAM_SETS))
+def test_bench_cuda(tmp_path, streams):
+    """Every stage once on the card at B = 2, R = 1, over each --streams
+    set, through the command line: a line a stage, then the summary; every
+    check passed (rc 0), so every e2e frame equals its golden."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     out = tmp_path / "bench.json"
     r = subprocess.run([sys.executable, "-m", "arrow_h264_tpu_torch.bench",
-                        "--batch", "2", "--repeats", "1", "--out", str(out)],
+                        "--streams", streams, "--batch", "2", "--repeats",
+                        "1", "--out", str(out)],
                        cwd=REPO, capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-4000:]
     lines = [json.loads(ln) for ln in r.stdout.strip().splitlines()]
     assert [ln["stage"] for ln in lines[:-1]] == list(bench.STAGES)
     last = lines[-1]
     assert last["device"]["name"] == torch.cuda.get_device_name(0)
+    assert last["stream_set"] == streams and last["run_s"] > 0
     assert set(last["medians"]) == set(bench.STAGES) | {
-        "gil_hold_pct", "projected_fps_at_cores"}
-    for ln in lines[1:-1]:
-        assert ln["device"] == last["device"]
-    for ln in lines[4:-1]:
-        assert ln["fps_from"] == "CUDA events around each call"
-        assert STAT_KEYS <= ln["event_ms"].keys()
+        "gil_hold_pct", "projected_fps_at_cores", "adversarial_gil_hold_pct",
+        "adversarial_projected_fps_at_cores"}
+    lanes = bench.cycle_lanes(bench.load_lanes(bench.set_paths(streams)), 2)
+    for ln in lines[:-1]:
+        stage = ln["stage"]
+        if stage not in bench.HOST_STAGES:
+            assert ln["device"] == last["device"]
+        if stage in bench.LANE_STAGES:
+            assert ln["stream_set"] == streams and ln["kbit_per_frame"] > 0
+        if stage.startswith("e2e"):
+            assert ln["frames"] == sum(len(lane.md5) for lane in lanes)
+        if stage.startswith("device_"):
+            assert ln["fps_from"] == "CUDA events around each call"
+            assert STAT_KEYS <= ln["event_ms"].keys()
+    assert lines[1]["stream_set"] == "adversarial"
     assert json.loads(out.read_text())["summary"] == last

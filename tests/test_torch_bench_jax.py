@@ -7,7 +7,11 @@ inter_mode and patch list its select_inter_mode picks (default backend:
 the XLA gather MC), over DPBs stored from the same numpy reference
 pictures.  The JAX package's TPU MC kernels with that patch list
 (`_mc_pred_batch`, Pallas in interpret mode) are held against the port's
-MC on every predicted cell.  atol 0 throughout."""
+MC on every predicted cell.  The host half that host_parse_fps and the e2e
+stages time on the --streams broadcast and adversarial sets: the first 3
+pictures of bench_broadcast_s0 and bench_adversarial through the port's
+Decoder(device="cpu", entropy="cpp").pack_abi and the JAX package's
+Decoder(entropy="cpp").pack_abi, key by key.  atol 0 throughout."""
 
 import functools
 
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from arrow_h264_tpu_torch import bench, convert
+from arrow_h264_tpu_torch.api import Decoder
 from arrow_h264_tpu_torch.models import pipeline
 from arrow_h264_tpu_torch.ops.abi import KIND_P
 
@@ -136,3 +141,37 @@ def test_wildmv_mc_equals_jax_pallas_patch(jax_side):
         assert msk.any()
         bad = (g.numpy() != np.asarray(w)) & msk
         assert not bad.any(), (name, np.argwhere(bad)[:4])
+
+
+def _pack_abis(dec, data: bytes, zeros) -> list[dict]:
+    """Each picture's pack_abi (public fields), committed to the DPB with
+    zero planes (zeros(shape)) and no device store, as the bench's host
+    stages do."""
+    abis = []
+    for pic, poc in dec.parse_pictures(data):
+        abis.append({k: np.array(v) if isinstance(v, np.ndarray) else v
+                     for k, v in dec.pack_abi(pic, poc).items()
+                     if not k.startswith("_")})
+        H, W = pic.mb_h * 16, pic.mb_w * 16
+        planes = (zeros((H, W)), *(zeros((H // 2, W // 2)) for _ in "cc"))
+        list(dec.commit(pic, poc, *planes, pipeline.dpb_slots(pic.sps),
+                        lambda *a: None))
+    return abis
+
+
+@pytest.mark.parametrize("name", ["bench_broadcast_s0", "bench_adversarial"])
+def test_bench_stream_abis_equal_jax(name):
+    """The first 3 pictures (an I, a P and a P or B) of the broadcast and
+    adversarial sets pack to the JAX package's ABIs, key by key, atol 0."""
+    from arrow_h264_tpu.api import Decoder as JaxDecoder
+    data = bench.truncate_aus((bench.DATA / f"{name}.264").read_bytes(), 3)
+    port, ref = Decoder(device="cpu", entropy="cpp"), JaxDecoder(entropy="cpp")
+    assert port.entropy == ref.entropy == "cpp"
+    got = _pack_abis(port, data, lambda s: torch.zeros(s, dtype=torch.uint8))
+    want = _pack_abis(ref, data, lambda s: np.zeros(s, np.uint8))
+    assert len(got) == len(want) == 3
+    assert (want[1]["kind"] >= KIND_P).any()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w), (i, set(g) ^ set(w))
+        for k in w:
+            assert np.array_equal(g[k], w[k]), f"picture {i}: field {k}"
