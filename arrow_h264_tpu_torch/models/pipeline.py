@@ -3,7 +3,8 @@
 Port of `arrow_h264_tpu.models.pipeline`.  Per frame, on the device:
 
     residual (dequant + IDCT) -> inter MC (kernels K3/K4) + weighted
-    combine -> intra (kernel K1) -> deblock tables -> deblock (kernel K2)
+    combine -> intra (kernel K1) -> deblock tables (kernel K7) -> deblock
+    (kernel K2)
 
 then `store_ref_fn` writes each reference picture's half-pel planes into
 its slot of the device DPB.  With order="raster" the intra and deblock
@@ -20,7 +21,8 @@ The host ships a picture as one compact uint8 buffer (ops.wire, the
 default upload "wire"): `upload_wire` emits each lane's buffer into its
 row of one pinned [B, total] staging tensor, copies it with one
 non_blocking copy and scatters it back into the dense ABI on the device
-(ops.wire.unpack_wire).  upload="dense" ships the dense int32 ABI
+(ops.wire.unpack_wire, whose bm8 coefficient classes go through kernel
+K8).  upload="dense" ships the dense int32 ABI
 (`ABI_DEVICE_KEYS`) key by key instead (`upload_batch`), as does every
 picture with dense per-cell weights (abi["wp"], the slice-row overflow of
 ops.abi), which the wire's 4-bit slice rows cannot carry.  Either way,
@@ -37,10 +39,10 @@ import torch
 
 from ..bitstream.params import PPS, SPS
 from ..ops.abi import KIND_P
-from ..ops.deblock import deblock_tables
 from ..ops.inter import PAD, PADC, halfpel_planes, mc_combine, pad_chroma
 from ..ops.kernels.deblock_phase import deblock_phase
 from ..ops.kernels.deblock_raster import deblock_raster
+from ..ops.kernels.deblock_tables import deblock_tables
 from ..ops.kernels.intra_phase import intra_phase
 from ..ops.kernels.intra_raster import intra_raster
 from ..ops.kernels.mc import mc_chroma, mc_luma

@@ -2,7 +2,10 @@
 
 Port of `arrow_h264_tpu.ops.deblock`.  `deblock_tables` computes every
 edge's bS, tc0, alpha and beta for the whole frame in one parallel pass;
-it depends only on coding data and stays plain PyTorch on every device.
+it depends only on coding data.  It is the plain version of the table
+kernel K7 (`ops/kernels/deblock_tables.py`, `csrc/deblock_tables.cu`),
+which the pipeline calls: CUDA tensors go through the kernel, CPU ones
+through this function.
 `deblock_filter_planes` then filters samples along the knight-move
 wavefront (phase = 2*mb_y + mb_x): an MB depends on its left, top and
 top-right neighbours, all in earlier phases.  It is the plain version of
@@ -32,8 +35,12 @@ _BETA = torch.tensor(BETA_TABLE, dtype=torch.int32)
 _TC0 = torch.tensor(TC0_TABLE, dtype=torch.int32)          # [3, 52]
 _CQP = torch.tensor(CHROMA_QP_TABLE, dtype=torch.int32)
 
-TABLE_KEYS = ("bs_v", "tc_v", "a_v", "b_v", "bs_h", "tc_h", "a_h", "b_h",
-              "bs_c", "tc_c", "a_c", "b_c")
+# deblock_tables's keys and each table's shape per MB (after [B, n])
+TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
+                "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
+                "bs_c": (2, 2, 4), "tc_c": (2, 2, 4, 2), "a_c": (2, 2, 2),
+                "b_c": (2, 2, 2)}
+TABLE_KEYS = tuple(TABLE_SHAPES)
 
 
 def _mv_far(a, b, limit_y: int):

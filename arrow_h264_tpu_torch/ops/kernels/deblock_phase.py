@@ -10,14 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from ..deblock import TABLE_KEYS, deblock_filter_planes
+from ..deblock import TABLE_KEYS, TABLE_SHAPES, deblock_filter_planes
 from . import LAUNCHES, build, cuda_device, require
 from .wavefront import wavefront_args
-
-_TABLE_SHAPES = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
-                 "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
-                 "bs_c": (2, 2, 4), "tc_c": (2, 2, 4, 2), "a_c": (2, 2, 2),
-                 "b_c": (2, 2, 2)}
 
 
 def deblock_phase(y, cb, cr, tables, mb_w: int, mb_h: int):
@@ -49,7 +44,7 @@ def run_deblock(name: str, y, cb, cr, tables, mb_w: int, mb_h: int,
     for arg, c in (("cb", cb), ("cr", cr)):
         require(c, arg, torch.uint8, (B, H // 2, W // 2), dev)
     for k in TABLE_KEYS:
-        require(tables[k], k, torch.int32, (B, n) + _TABLE_SHAPES[k], dev)
+        require(tables[k], k, torch.int32, (B, n) + TABLE_SHAPES[k], dev)
     for arg, t in (("y", y), ("cb", cb), ("cr", cr),
                    *((k, tables[k]) for k in TABLE_KEYS)):
         if t.data_ptr() % 16:           # the kernel copies 16-byte rows

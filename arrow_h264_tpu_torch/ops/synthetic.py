@@ -4,6 +4,7 @@
 package's `arrow_h264_tpu.ops.synthetic`: a random I frame, or a P/B frame
 with a bounded MV palette and sparse intra MBs.  `synthetic_batch` uploads
 one; `random_intra_abi` draws the intra fields with no structure at all,
+`random_deblock_abi` the fields the deblocking tables read,
 `random_deblock_tables` the deblocking tables.
 """
 
@@ -15,6 +16,7 @@ from .abi import (
     MAX_SLICES, KIND_I4x4, KIND_I16, KIND_P, FrameABI, identity_wtab,
     patch_capacity,
 )
+from .deblock import TABLE_SHAPES
 from ..models.pipeline import upload_abi
 
 
@@ -149,6 +151,36 @@ def random_intra_abi(mb_w: int, mb_h: int, seed: int) -> dict:
         mb_avail=rng.integers(0, 2, (n, 3)).astype(np.int32))
 
 
+def random_deblock_abi(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
+    """The ABI fields that ops/deblock.py::deblock_tables reads (numpy
+    int32 [B, n, ...]) with every MB kind (two thirds inter, so that most
+    edges take the MV and reference rules) and every rule in play: slices
+    of ~10 MBs (ids 0..15) with disable_idc 0, 1 or 2 and their own
+    alpha and beta offsets (even, -12..12), qp 0..51 (a quarter of the
+    MBs at 0 or 51), tr8, nz counts 0..2, refids -1, 0..3 and NX_FLAG
+    (64) | 0..1 with both lists often on one picture, and MVs of -7..7
+    quarter samples, so that differences fall on both sides of the
+    limits 2 and 4."""
+    rng = np.random.default_rng(seed)
+    n = mb_w * mb_h
+    g = (B, n)
+    sid = np.cumsum(rng.random(g) < 0.1, 1) % MAX_SLICES
+    per_slice = lambda lo, hi: np.take_along_axis(
+        rng.integers(lo, hi, (B, MAX_SLICES)), sid, 1)
+    qp = rng.integers(0, 52, g)
+    qp = np.where(rng.random(g) < 0.25, rng.choice([0, 51], g), qp)
+    ref = rng.choice([-1, -1, 0, 1, 2, 3, 64, 65], g + (4, 4, 2))
+    same = rng.random(g + (4, 4)) < 0.25         # both lists on one picture
+    ref[..., 1] = np.where(same, ref[..., 0], ref[..., 1])
+    return {k: np.ascontiguousarray(v, np.int32) for k, v in dict(
+        kind=rng.choice(6, g, p=[.1, .1, .1, .05, .35, .3]), qp=qp,
+        slice_id=sid,
+        disable_idc=per_slice(0, 3), alpha_off=2 * per_slice(-6, 7),
+        beta_off=2 * per_slice(-6, 7), tr8=rng.integers(0, 2, g),
+        nz=rng.choice([0, 0, 0, 1, 2], g + (4, 4)),
+        mv=rng.integers(-7, 8, g + (4, 4, 2, 2)), refid=ref).items()}
+
+
 def random_deblock_tables(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
     """Deblocking tables (numpy int32, the keys and shapes of
     ops/deblock.py::deblock_tables, [B, n, ...]) with no structure: bS
@@ -157,13 +189,9 @@ def random_deblock_tables(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
     guarantees."""
     rng = np.random.default_rng(seed)
     n = mb_w * mb_h
-    shapes = {"bs_v": (4, 4), "tc_v": (4, 4), "a_v": (4,), "b_v": (4,),
-              "bs_h": (4, 4), "tc_h": (4, 4), "a_h": (4,), "b_h": (4,),
-              "bs_c": (2, 2, 4), "tc_c": (2, 2, 4, 2), "a_c": (2, 2, 2),
-              "b_c": (2, 2, 2)}
     hi = {"bs": 5, "tc": 26, "a_": 256, "b_": 256}
     t = {k: rng.integers(0, hi[k[:2]], (B, n) + s).astype(np.int32)
-         for k, s in shapes.items()}
+         for k, s in TABLE_SHAPES.items()}
     t["bs_v"].reshape(B, mb_h, mb_w, 4, 4)[:, :, 0, 0] = 0
     t["bs_h"].reshape(B, mb_h, mb_w, 4, 4)[:, 0, :, 0] = 0
     t["bs_c"].reshape(B, mb_h, mb_w, 2, 2, 4)[:, :, 0, 0, 0] = 0

@@ -870,7 +870,13 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec) -> dict:
     and validity, which the injective uid -> slot substitution keeps.
     Cells referencing non-existing (gap) pictures arrive with NX_FLAG
     set: refid keeps the flag (a distinct identity), refslot drops it
-    (the slot MC reads)."""
+    (the slot MC reads).
+
+    Each coefficient class shipped as bm8 is expanded by kernel K8
+    (ops/kernels/unpack_bm8.py, one wrapper call a class) on a CUDA
+    device, by _scatter_bm8 on the CPU."""
+    # imported here: the wrapper module imports this one (_scatter_bm8)
+    from .kernels.unpack_bm8 import unpack_bm8
     n = mb_w * mb_h
     table, total = _offsets(spec, n)
     if buf.dtype != torch.uint8 or buf.dim() != 2 or buf.shape[1] != total:
@@ -949,7 +955,7 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec) -> dict:
         if sch in ("dense", "dense16"):
             out[key] = _i32(_read(buf, table, f + "_dense")).reshape(shape)
         else:
-            out[key] = _scatter_bm8(
+            out[key] = unpack_bm8(
                 _read(buf, table, f + "_idx"), _read(buf, table, f + "_bm"),
                 _read(buf, table, f + "_val"), grid, w).reshape(shape)
 

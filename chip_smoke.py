@@ -13,9 +13,19 @@ Phases (each prints a line; any failure exits non-zero):
               init planes, K2/K6 also on random tables (bS 0..4, tc0
               0..25, alpha and beta 0..255) over random planes (the JSON
               keeps the synthetic_abi numbers);
+              K7 (deblock_tables) and K8 (unpack_bm8), the two stages
+              the reference computes in XLA: K7's twelve tables
+              torch.equal to ops/deblock.py::deblock_tables at 1080p and
+              3840x2160, B = 1 and 4, on synthetic_abi_p,
+              random_deblock_abi and synthetic_abi_p as fields (the JSON
+              keeps the synthetic_abi_p frames); K8's dense output
+              torch.equal to ops/wire.py::_scatter_bm8 for every bm8
+              class of the smoke stream's pictures (each alone, and
+              pictures 1-4 as four lanes) and of the uhd lanes (conf_c5
+              picture 1 alone and as four lanes), timed on the l4 class;
               each kernel's device launches in one wrapper call, counted
               by torch.profiler after phase 10 (every kernel must launch
-              once per call)
+              once per call, K8 its DEVICE_LAUNCHES, 3)
   4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
               1080p input, every output equal to the plain version; all
               four at B = 4 (four 1080p frames in one launch each), exact
@@ -148,6 +158,10 @@ Phases (each prints a line; any failure exits non-zero):
               the picture's width, whose MBs it walks one after another,
               times the picture's 2 (mb_h - 1) + mb_w chain steps over
               mb_w (an estimate, not a floor; log lines only).
+In phases 6-11 every decode also launches K7 once a picture (a round;
+twice a round with two shards) and K8 once for each coefficient class
+that a wire upload ships as bm8 (tools/gpu_conformance.py bm8_tally
+counts them from the specs unpack_wire gets), none on a dense round.
 Then one torch.profiler session counts the device launches of each
 kernel's wrapper call and the kernels of one unpack_wire call at each B
 of phase 10 with their summed device time (`[kernels]`, `[wire]`
@@ -160,8 +174,10 @@ int32 operations over 67 T/s (the H100's published rates: HBM, and
 float32 outside the tensor cores, which no int32 rate exceeds).  Bytes
 count each input the work needs read once and each output written once,
 from this run's inputs (see the *_need functions).  No single PyTorch
-call computes H.264 intra prediction, the deblocking filter or the
-quarter-sample MC bit-exactly, so `library_ms` is null for every kernel.
+call computes H.264 intra prediction, the deblocking filter, the
+quarter-sample MC, the deblocking tables or the bm8 expansion
+bit-exactly, so `library_ms` is null for every kernel.  K7's and K8's
+`replaces` name the reference's XLA stage: no pallas_call matches them.
 Each kernel's `launches` counts its wrapper's launches in the main path's
 run: BatchDecoder(8) over the batch lanes with the order that runs the
 kernel (one a round, so 6 for the six rounds: the same number as the
@@ -184,6 +200,10 @@ in the conformance phase's: BatchDecoder(4) over the 4K lanes with the
 kernel's order (3 rounds, 2 with an inter lane).  `ms_2160p` and
 `bound_ms_2160p` are each kernel's time and bound at 3840x2160 (K2/K6
 on synthetic_abi, K3/K4 on synthetic_abi_p over 4 random references).
+K7 and K8 also get `ms_b4`, `ms_2160p`, `ms_b4_2160p`, the bound and
+the plain version's ms of each (`bound_ms_*`, `plain_ms_*`): K7 on
+synthetic_abi_p, K8 on the l4 class of smoke pictures 1-4 as four
+lanes, of conf_c5's picture 1 and of the uhd round of four.
 The other MC figures (launched back to back from the host without the
 device sleep, the smoke stream's pictures, the B = 8 variants) are log
 lines only.
@@ -515,12 +535,167 @@ def compare(name: str, got, want) -> int:
     return err
 
 
+def compare_tables(name: str, got: dict, want: dict) -> int:
+    """compare() of the twelve deblocking tables, key by key."""
+    if list(got) != list(want):
+        sys.exit(f"{name}: keys {list(got)} != {list(want)}")
+    return max(compare(f"{name} {k}", got[k], want[k]) for k in want)
+
+
+def tables_need(a: dict, tables: dict) -> tuple[float, float]:
+    """Bytes and operations of the deblocking tables: the ABI fields that
+    K7 reads (ops/kernels/deblock_tables.py ABI_FIELDS) and the four
+    constant tables read once, the twelve tables written once; ~1500
+    int32 ops an MB (32 edge segments of ~40, and the table lookups)."""
+    from arrow_h264_tpu_torch.ops.kernels.deblock_tables import ABI_FIELDS
+    n_mb = a["kind"].numel()
+    return nbytes(*(a[k] for k, _ in ABI_FIELDS), *tables.values()) \
+        + 4 * (52 + 52 + 3 * 52 + 52), 1500 * n_mb
+
+
+def bm8_need(idx, bm, vals, out) -> tuple[float, float]:
+    """Bytes and operations of a bm8 expansion: the indices, bitmaps and
+    values of every lane read once (views of the wire: their own bytes),
+    the dense output written once; ~4 int32 ops an output word."""
+    return nbytes(idx, bm, vals, out), 4 * out.numel()
+
+
+def wire_bm8(abis: list, mb_w: int, mb_h: int, dev) -> list:
+    """The bm8 sections of one wire round of the host ABIs `abis` (one a
+    lane) on the card, as unpack_wire hands them to K8: [(class, idx, bm,
+    vals, grid, w)], views of the round's [B, total] buffer."""
+    from arrow_h264_tpu_torch.ops import wire
+    n = mb_w * mb_h
+    packs = [wire.pack_wire_raw(a, mb_w, mb_h) for a in abis]
+    target = wire.merge_specs([sp for _, sp in packs])
+    buf = torch.from_numpy(np.stack([wire.emit_wire(r, sp, target, n)
+                                     for r, sp in packs])).to(dev)
+    table, _ = wire._offsets(target, n)
+    sd = {f: sch for f, sch, _ in target}
+    return [(f, *(wire._read(buf, table, f + sfx)
+                  for sfx in ("_idx", "_bm", "_val")), n * cpm, w)
+            for f, _, cpm, w in wire._COEFF_FIELDS if sd[f] == "bm8"]
+
+
+def tables_and_bm8(record, results: dict, smi: str) -> None:
+    """Phase 3's K7 (deblock_tables) and K8 (unpack_bm8), against their
+    plain versions (module docstring)."""
+    from arrow_h264_tpu_torch.ops.deblock import (
+        deblock_tables as tables_plain,
+    )
+    from arrow_h264_tpu_torch.ops.kernels.deblock_tables import (
+        deblock_tables,
+    )
+    from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import unpack_bm8
+    from arrow_h264_tpu_torch.ops.synthetic import (
+        random_deblock_abi, synthetic_batch,
+    )
+    from arrow_h264_tpu_torch.ops.wire import _scatter_bm8
+    dev = torch.device("cuda")
+    cqp = (2, -3)
+    k7 = ("deblock_tables", "deblock_tables (K7)",
+          "arrow_h264_tpu_torch/csrc/deblock_tables.cu",
+          "arrow_h264_tpu/ops/deblock.py:354 (XLA; no pallas_call)")
+    k8 = ("unpack_bm8", "unpack_bm8 (K8)",
+          "arrow_h264_tpu_torch/csrc/unpack_bm8.cu",
+          "arrow_h264_tpu/ops/wire.py:1057 (XLA; no pallas_call)")
+
+    # K7 at 1080p and 3840x2160, B = 1 and 4: synthetic_abi_p frames (the
+    # JSON's figures), random_deblock_abi, and synthetic_abi_p as fields
+    for (mb_w, mb_h), size in (((MB_W, MB_H), ""),
+                               ((MB_W_4K, MB_H_4K), "_2160p")):
+        for B in (1, B4):
+            lanes = [synthetic_batch(mb_w, mb_h, SEED + 50 + i, dev,
+                                     inter=True, bi_frac=0.3)[1]
+                     for i in range(B)]
+            ap = {k: torch.cat([x[k] for x in lanes]) for k in lanes[0]}
+            ar = {k: torch.from_numpy(v).to(dev) for k, v in
+                  random_deblock_abi(mb_w, mb_h, B, SEED + 51).items()}
+            del lanes
+            for note, a, field in (("synthetic_abi_p", ap, False),
+                                   ("random_deblock_abi", ar, False),
+                                   ("synthetic_abi_p field", ap, True)):
+                what = f"{note} {16 * mb_w}x{16 * mb_h} B={B}"
+                want = tables_plain(a, mb_w, mb_h, cqp, field)
+                got = deblock_tables(a, mb_w, mb_h, cqp, field)
+                torch.cuda.synchronize()
+                err = compare_tables(f"deblock_tables {what}", got, want)
+                call = partial(deblock_tables, a, mb_w, mb_h, cqp, field)
+                ms = kernel_ms(call)
+                plain = cuda_ms(partial(tables_plain, a, mb_w, mb_h, cqp,
+                                        field), KERNEL_REPS)
+                need = tables_need(a, got)
+                if note != "synthetic_abi_p":
+                    log("kernels", f"{k7[1]} {what}: equal, kernel {ms:.4f}"
+                        f" ms, plain {plain:.4f} ms, bound "
+                        f"{bound(*need)[0]:.4f} ms")
+                elif B == 1 and not size:
+                    record(*k7, err, ms, plain, need, what, call)
+                else:
+                    tag = ("_b4" if B > 1 else "") + size
+                    results["deblock_tables"].update(
+                        {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
+                         f"plain_ms{tag}": plain})
+                    log("kernels", f"{k7[1]} {what}: equal, kernel {ms:.4f}"
+                        f" ms, plain {plain:.4f} ms, bound "
+                        f"{bound(*need)[0]:.4f} ms")
+            del ap, ar
+    log("kernels", f"{k7[1]}: the twelve tables torch.equal to the plain "
+        f"version at 1080p and 3840x2160, B = 1 and {B4}, frames and "
+        "fields")
+
+    # K8 on the wire of real pictures: the smoke stream's, each alone and
+    # pictures 1-4 as one round of four lanes, then the uhd lanes' (four
+    # conf_c5 lanes: picture 1 alone and round 1 of the four)
+    smoke, _ = stream_abis(STREAM.read_bytes(), dev)
+    uhd, _ = stream_abis((STREAM.parent / "conf_c5.264").read_bytes(), dev)
+    rounds = [(f"smoke picture {i}", [a], MB_W, MB_H, "" if i == 1 else None)
+              for i, a in enumerate(smoke)] + [
+        (f"smoke pictures 1-{B4} as {B4} lanes", smoke[1:1 + B4], MB_W, MB_H,
+         "_b4"),
+        ("conf_c5 picture 1", [uhd[1]], MB_W_4K, MB_H_4K, "_2160p"),
+        (f"uhd round 1 ({B4} conf_c5 lanes)", [uhd[1]] * B4, MB_W_4K,
+         MB_H_4K, "_b4_2160p")]
+    checked = 0
+    for what, abis, mb_w, mb_h, tag in rounds:
+        for f, idx, bm, vals, grid, w in wire_bm8(abis, mb_w, mb_h, dev):
+            want = _scatter_bm8(idx, bm, vals, grid, w)
+            got = unpack_bm8(idx, bm, vals, grid, w)
+            torch.cuda.synchronize()
+            err = compare(f"unpack_bm8 {what} {f}", got, want)
+            checked += 1
+            if f != "l4" or tag is None:
+                continue
+            call = partial(unpack_bm8, idx, bm, vals, grid, w)
+            ms = kernel_ms(call)
+            plain = cuda_ms(partial(_scatter_bm8, idx, bm, vals, grid, w),
+                            KERNEL_REPS)
+            need = bm8_need(idx, bm, vals, got)
+            if not tag:
+                record(*k8, err, ms, plain, need, f"{what} l4", call)
+            else:
+                results["unpack_bm8"].update(
+                    {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
+                     f"plain_ms{tag}": plain})
+                log("kernels", f"{k8[1]} {what} l4: equal, kernel {ms:.4f} "
+                    f"ms, plain {plain:.4f} ms, bound {bound(*need)[0]:.4f}"
+                    " ms")
+    del smoke, uhd
+    if "unpack_bm8" not in results:
+        sys.exit("unpack_bm8: the smoke stream's picture 1 shipped no l4 "
+                 "class as bm8")
+    log("kernels", f"{k8[1]}: {checked} bm8 classes of the smoke stream's "
+        f"and the uhd lanes' wire rounds torch.equal to the plain "
+        f"version; on {smi}")
+
+
 def batch_phase(paths: dict, smi: str) -> dict:
     """The batch phase (module docstring); returns {order: LAUNCHES of the
     main path's run, BatchDecoder(BATCH_LANES) with that order}."""
     from arrow_h264_tpu_torch.api import Decoder, PendingFrame
     from arrow_h264_tpu_torch.ops import kernels
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    from tools.gpu_conformance import bm8_tally, want_launches
     data = [p.read_bytes() for p in BATCH_STREAMS]
     golden = [json.loads(p.with_suffix(".json").read_text())["md5"]
               for p in BATCH_STREAMS]
@@ -536,8 +711,8 @@ def batch_phase(paths: dict, smi: str) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t = time.perf_counter()
-        with BatchDecoder(n, device="cuda", order=order,
-                          materialize=materialize) as bd:
+        with bm8_tally() as tally, BatchDecoder(
+                n, device="cuda", order=order, materialize=materialize) as bd:
             outs = bd.decode(datas)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -565,14 +740,14 @@ def batch_phase(paths: dict, smi: str) -> dict:
                 name = BATCH_STREAMS[i % len(data)].name
                 sys.exit(f"{what}: lane {i} ({name}) MD5s differ from the "
                          "golden")
-        intra, deblock, *mc = paths[order]
-        want = dict.fromkeys(kernels.LAUNCHES, 0)
-        want.update({intra: bd.rounds, deblock: bd.rounds,
-                     **dict.fromkeys(mc, bd.inter_rounds)})
-        if got != want or not 0 < bd.inter_rounds <= bd.rounds:
+        want = want_launches(got, order, bd.rounds, bd.inter_rounds,
+                             tally["bm8"])
+        if got != want or not 0 < bd.inter_rounds <= bd.rounds or \
+                not 0 < tally["bm8"] or tally["unpacks"] != bd.wire_rounds:
             sys.exit(f"{what}: launches {got}, expected {want} (one a round; "
                      f"{bd.rounds} rounds, {bd.inter_rounds} with an inter "
-                     "lane)")
+                     f"lane; unpack_bm8 once a bm8 class of the "
+                     f"{tally['unpacks']} wire rounds)")
         if bd.rounds != max(len(golden[i % len(data)]) for i in range(n)
                             if i != corrupt):
             sys.exit(f"{what}: {bd.rounds} rounds")
@@ -667,25 +842,26 @@ def fields_phase(paths: dict, smi: str) -> dict:
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.ops import kernels
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    from tools.gpu_conformance import bm8_tally, want_launches
     data = [p.read_bytes() for p in FIELD_STREAMS]
     meta = [json.loads(p.with_suffix(".json").read_text())
             for p in FIELD_STREAMS]
 
-    def want(order, fields, inter_fields):
-        intra, deblock, *mc = paths[order]
-        w = dict.fromkeys(kernels.LAUNCHES, 0)
-        w.update({intra: fields, deblock: fields,
-                  **dict.fromkeys(mc, inter_fields)})
-        return w
+    def want(order, fields, inter_fields, tally):
+        """want_launches of `fields` fields (rounds) through the wire."""
+        w = want_launches(kernels.LAUNCHES, order, fields, inter_fields,
+                          tally["bm8"])
+        return w if tally["unpacks"] == fields else {**w, "unpacks": fields}
 
     def decode(order, d):
         dec = Decoder(device="cuda", order=order)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        md5 = [hashlib.md5(f.planar()).hexdigest()
-               for f in dec.decode_annexb(d)]
+        with bm8_tally() as tally:
+            md5 = [hashlib.md5(f.planar()).hexdigest()
+                   for f in dec.decode_annexb(d)]
         torch.cuda.synchronize()
-        return dec, md5, time.perf_counter() - t
+        return dec, md5, time.perf_counter() - t, tally
 
     # (b) each stream alone, with each order
     for order in paths:
@@ -693,7 +869,7 @@ def fields_phase(paths: dict, smi: str) -> dict:
         for p, d, m in zip(FIELD_STREAMS, data, meta):
             decode(order, d)                     # warm-up: first-call costs
             kernels.reset_launches()
-            dec, md5, wall_s = decode(order, d)
+            dec, md5, wall_s, tally = decode(order, d)
             got = dict(kernels.LAUNCHES)
             if md5 != m["md5"]:
                 bad = [i for i, (a, b) in enumerate(zip(md5, m["md5"]))
@@ -702,11 +878,13 @@ def fields_phase(paths: dict, smi: str) -> dict:
                          f"golden {len(m['md5'])}; MD5 mismatch at {bad}")
             fields = 2 * len(m["structure"])
             inter = 2 * sum(k != "I" for k in m["structure"])
-            if got != want(order, fields, inter) or \
+            if got != want(order, fields, inter, tally) or \
                     dec.stats.frames != fields:
                 sys.exit(f"fields {p.name} {order}: launches {got}, "
-                         f"expected {want(order, fields, inter)} (a field "
-                         f"picture each; K3/K4 for {inter} P/B fields)")
+                         f"expected {want(order, fields, inter, tally)} (a "
+                         f"field picture each; K3/K4 for {inter} P/B "
+                         "fields; unpack_bm8 once a bm8 class of a wire "
+                         "upload)")
             frames += len(md5)
             wall += wall_s
             log("fields", f"{p.name} order={order}: {len(md5)} frames "
@@ -727,7 +905,8 @@ def fields_phase(paths: dict, smi: str) -> dict:
             torch.cuda.synchronize()
             kernels.reset_launches()
             t = time.perf_counter()
-            with BatchDecoder(FIELD_LANES, device="cuda", order=order) as bd:
+            with bm8_tally() as tally, BatchDecoder(
+                    FIELD_LANES, device="cuda", order=order) as bd:
                 outs = bd.decode(datas)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
@@ -744,11 +923,12 @@ def fields_phase(paths: dict, smi: str) -> dict:
         inter = rounds - 2                      # all but the I pair
         if (bd.rounds, bd.inter_rounds, bd.wire_rounds, bd.dense_rounds) \
                 != (rounds, inter, rounds, 0) or \
-                got != want(order, bd.rounds, bd.inter_rounds):
+                got != want(order, bd.rounds, bd.inter_rounds, tally):
             sys.exit(f"fields batch {order}: launches {got} in {bd.rounds} "
                      f"rounds ({bd.inter_rounds} inter, {bd.wire_rounds} "
                      f"wire, {bd.dense_rounds} dense), expected "
-                     f"{want(order, rounds, inter)} in {rounds} wire rounds")
+                     f"{want(order, rounds, inter, tally)} in {rounds} wire "
+                     "rounds")
         n = sum(len(f) for f in outs)
         log("fields", f"BatchDecoder({FIELD_LANES}) order={order}: every lane "
             f"MD5 == golden; launches {got} in {bd.rounds} rounds "
@@ -764,16 +944,14 @@ def features_phase(paths: dict, smi: str) -> dict:
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.ops import kernels
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    from tools.gpu_conformance import bm8_tally, want_launches
     data = STREAM.parent
     meta = {n: json.loads((data / f"{n}.json").read_text())
             for n in FEATURE_STREAMS}
 
-    def want(order, pictures, mc_pictures):
-        intra, deblock, *mc = paths[order]
-        w = dict.fromkeys(kernels.LAUNCHES, 0)
-        w.update({intra: pictures, deblock: pictures,
-                  **dict.fromkeys(mc, mc_pictures)})
-        return w
+    def want(order, pictures, mc_pictures, bm8):
+        return want_launches(kernels.LAUNCHES, order, pictures, mc_pictures,
+                             bm8)
 
     # (a), (d) each stream alone, with each order
     launches = {}
@@ -786,8 +964,9 @@ def features_phase(paths: dict, smi: str) -> dict:
             torch.cuda.synchronize()
             kernels.reset_launches()
             t = time.perf_counter()
-            md5 = [hashlib.md5(f.planar()).hexdigest()
-                   for f in dec.decode_annexb(stream)]
+            with bm8_tally() as tally:
+                md5 = [hashlib.md5(f.planar()).hexdigest()
+                       for f in dec.decode_annexb(stream)]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             got = dict(kernels.LAUNCHES)
@@ -800,12 +979,13 @@ def features_phase(paths: dict, smi: str) -> dict:
                          f"expected {len(m['md5'])} ({m['expected']}); MD5 "
                          f"mismatch at {bad}")
             pictures = len(m["structure"])
-            if got != want(order, pictures, m["mc_pictures"]) or \
-                    dec.stats.frames != pictures:
+            w = want(order, pictures, m["mc_pictures"], tally["bm8"])
+            if got != w or dec.stats.frames != pictures:
                 sys.exit(f"features {name} {order}: launches {got}, "
-                         f"expected {want(order, pictures, m['mc_pictures'])}"
-                         f" (a picture each; K3/K4 for the "
-                         f"{m['mc_pictures']} with inter MBs)")
+                         f"expected {w} (a picture each; K3/K4 for the "
+                         f"{m['mc_pictures']} with inter MBs; unpack_bm8 "
+                         f"once a bm8 class of the {tally['unpacks']} wire "
+                         "uploads)")
             if "concealed" in m and \
                     [list(c) for c in dec.concealed] != m["concealed"]:
                 sys.exit(f"features {name} {order}: concealed "
@@ -825,7 +1005,8 @@ def features_phase(paths: dict, smi: str) -> dict:
             torch.cuda.synchronize()
             kernels.reset_launches()
             t = time.perf_counter()
-            with BatchDecoder(len(names), device="cuda", order=order) as bd:
+            with bm8_tally() as tally, BatchDecoder(
+                    len(names), device="cuda", order=order) as bd:
                 outs = bd.decode(datas)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
@@ -838,14 +1019,16 @@ def features_phase(paths: dict, smi: str) -> dict:
                         for f in frames] != md5:
                     sys.exit(f"features batch {what} {order}: lane {i} "
                              f"({names[i]}) MD5s differ")
+            w = want(order, rounds, inter, tally["bm8"])
             if (bd.rounds, bd.inter_rounds, bd.dense_rounds,
-                    bd.wire_rounds) != (rounds, inter, dense, rounds - dense) \
-                    or got != want(order, rounds, inter):
+                    bd.wire_rounds, tally["unpacks"]) != (
+                    rounds, inter, dense, rounds - dense, rounds - dense) \
+                    or got != w:
                 sys.exit(f"features batch {what} {order}: launches {got} in "
                          f"{bd.rounds} rounds ({bd.inter_rounds} inter, "
-                         f"{bd.dense_rounds} dense, {bd.wire_rounds} wire), "
-                         f"expected {want(order, rounds, inter)} in {rounds} "
-                         f"rounds, {dense} of them dense")
+                         f"{bd.dense_rounds} dense, {bd.wire_rounds} wire, "
+                         f"{tally['unpacks']} unpacked), expected {w} in "
+                         f"{rounds} rounds, {dense} of them dense")
             n = sum(len(f) for f in outs)
             log("features", f"BatchDecoder({len(names)}) {what} {names} "
                 f"order={order}: every lane MD5 == expected; launches {got} "
@@ -936,10 +1119,10 @@ def check_abi(what: str, got: dict, want: dict) -> None:
                          "dense refid")
 
 
-def wire_phase(paths: dict, smi: str) -> dict:
-    """The wire phase (module docstring); returns {"unpack_wire B=...":
-    one call of unpack_wire on the card at that B} for the profiler
-    session."""
+def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
+    """The wire phase (module docstring); returns ({"unpack_wire B=...":
+    one call of unpack_wire on the card at that B}, the bm8 classes those
+    calls expand: K8 calls) for the profiler session."""
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.models.pipeline import (
         ABI_DEVICE_KEYS, upload_batch, upload_nbytes, upload_wire,
@@ -951,6 +1134,7 @@ def wire_phase(paths: dict, smi: str) -> dict:
         emit_wire, merge_specs, pack_wire_raw, unpack_wire, wire_total,
     )
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    from tools.gpu_conformance import bm8_tally, want_launches
     dev = torch.device("cuda")
     n = MB_W * MB_H
     data = [p.read_bytes() for p in BATCH_STREAMS]
@@ -989,7 +1173,7 @@ def wire_phase(paths: dict, smi: str) -> dict:
         f"{max(dense_b)}), {mean_d / mean_w:.2f}x; pack_wire_raw {1e3 * statistics.mean(pack_s):.3f} ms a picture "
         f"(min {1e3 * min(pack_s):.3f}, max {1e3 * max(pack_s):.3f}), one "
         f"host thread; on {smi}")
-    regions = {}
+    regions, region_bm8 = {}, 0
     for B in WIRE_BATCHES:
         # round 1 of B lanes cycling the four streams (P pictures)
         abis = [streams[i % len(streams)][0][1] for i in range(B)]
@@ -1010,6 +1194,7 @@ def wire_phase(paths: dict, smi: str) -> dict:
         call = partial(unpack_wire, dbuf, MB_W, MB_H, target)
         unpack_ms = cuda_ms(call, KERNEL_REPS, ROUNDS)
         regions[f"unpack_wire B={B}"] = call
+        region_bm8 += sum(sch == "bm8" for _, sch, _ in target)
         staged = [torch.from_numpy(np.stack(
             [np.asarray(a[k]) for a in abis]).astype(np.int32)).pin_memory()
             for k in ABI_DEVICE_KEYS
@@ -1049,8 +1234,9 @@ def wire_phase(paths: dict, smi: str) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t = time.perf_counter()
-        with BatchDecoder(B, device="cuda", mesh=mesh, order=order,
-                          upload=upload) as bd:
+        with bm8_tally() as tally, BatchDecoder(
+                B, device="cuda", mesh=mesh, order=order,
+                upload=upload) as bd:
             outs = bd.decode(datas)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -1063,15 +1249,15 @@ def wire_phase(paths: dict, smi: str) -> dict:
                 sys.exit(f"{what}: lane {i} failed or differs from the "
                          f"golden: {bd.errors[i]!r}")
         k = 1 if mesh is None else len(mesh)
-        intra, deblock, *mc = paths[order]
-        want = dict.fromkeys(kernels.LAUNCHES, 0)
-        want.update({intra: k * bd.rounds, deblock: k * bd.rounds,
-                     **dict.fromkeys(mc, k * bd.inter_rounds)})
-        rounds = (bd.wire_rounds, bd.dense_rounds)
+        want = want_launches(kernels.LAUNCHES, order, bd.rounds,
+                             bd.inter_rounds, tally["bm8"], shards=k)
+        rounds = (bd.wire_rounds, bd.dense_rounds, tally["unpacks"])
         if dict(kernels.LAUNCHES) != want or rounds != (
-                (bd.rounds, 0) if upload == "wire" else (0, bd.rounds)):
+                (bd.rounds, 0, k * bd.rounds) if upload == "wire"
+                else (0, bd.rounds, 0)):
             sys.exit(f"{what}: launches {dict(kernels.LAUNCHES)}, expected "
-                     f"{want}; {rounds} wire/dense rounds of {bd.rounds}")
+                     f"{want}; {rounds} wire/dense rounds of {bd.rounds} and"
+                     " wire uploads unpacked")
         frames = sum(s["frames"] for s in bd.stats)
         parse_s = sum(s["host_parse_s"] for s in bd.stats)
         return (f"{frames} frames in {wall:.4f} s, {frames / wall:.3f} "
@@ -1104,7 +1290,7 @@ def wire_phase(paths: dict, smi: str) -> dict:
                 f"{1 if shards is None else SHARDS} shard(s) on one card: "
                 f"every lane MD5 == golden; "
                 f"{batch(BATCH_LANES, order, 'wire', shards)}; on {smi}")
-    return regions
+    return regions, region_bm8
 
 
 def conformance_phase(paths: dict, smi: str) -> dict:
@@ -1393,6 +1579,7 @@ def main() -> None:
     from arrow_h264_tpu_torch.ops.transforms import (
         make_ws_consts, residual_planes,
     )
+    from tools.gpu_conformance import bm8_tally
 
     # ---- build
     t0 = time.perf_counter()
@@ -1720,6 +1907,9 @@ def main() -> None:
                             bound_ms_b8_partitions=bound_ms)
     del dpbs
 
+    # K7 and K8, the stages the reference computes in XLA
+    tables_and_bm8(record, results, smi)
+
     # ---- the main paths: decode the committed 1080p High stream with each
     # order of the intra and deblock kernels
     golden = json.loads(STREAM.with_suffix(".json").read_text())
@@ -1733,16 +1923,17 @@ def main() -> None:
     def decode(order):
         dec = Decoder(device="cuda", order=order)
         t = time.perf_counter()
-        md5 = [hashlib.md5(f.planar()).hexdigest()
-               for f in dec.decode_annexb(data)]
+        with bm8_tally() as tally:
+            md5 = [hashlib.md5(f.planar()).hexdigest()
+                   for f in dec.decode_annexb(data)]
         torch.cuda.synchronize()
-        return dec, md5, time.perf_counter() - t
+        return dec, md5, time.perf_counter() - t, tally
 
     launches = {}
     for order, path in paths.items():
-        _, _, cold_s = decode(order)            # warm-up: first-call costs
+        *_, cold_s, _ = decode(order)           # warm-up: first-call costs
         kernels.reset_launches()
-        (dec, md5, wall_s), *meter = metered(partial(decode, order))
+        (dec, md5, wall_s, tally), *meter = metered(partial(decode, order))
         launches[order] = dict(kernels.LAUNCHES)
         if dec.entropy != "cpp":
             sys.exit(f"decode: host entropy is {dec.entropy!r}, not the C++ "
@@ -1753,9 +1944,14 @@ def main() -> None:
             sys.exit(f"decode {order}: {len(md5)} frames, golden "
                      f"{len(golden['md5'])}; MD5 mismatch at frames {bad}")
         ran = {k for k, v in launches[order].items() if v}
-        if ran != set(path):
-            sys.exit(f"decode {order}: launched {sorted(ran)}, expected "
-                     f"{sorted(path)}: {launches[order]}")
+        got = launches[order]
+        once = got["deblock_tables"] == tally["unpacks"] == len(md5)
+        if ran != set(path) | {"deblock_tables", "unpack_bm8"} or not once \
+                or got["unpack_bm8"] != tally["bm8"]:
+            sys.exit(f"decode {order}: launched {got}, expected "
+                     f"{sorted(path)}, deblock_tables once a picture and "
+                     f"unpack_bm8 {tally['bm8']} times ({tally['unpacks']} "
+                     f"wire uploads of {len(md5)} pictures)")
         log("decode", f"order={order}: {len(md5)} frames "
             f"{golden['width']}x{golden['height']} MD5 == libavcodec golden; "
             f"{wall_s:.3f} s wall, {len(md5) / wall_s:.3f} fps (first pass "
@@ -1768,21 +1964,27 @@ def main() -> None:
     batch_launches = batch_phase(paths, smi)
     field_launches = fields_phase(paths, smi)
     feature_launches = features_phase(paths, smi)
-    regions = wire_phase(paths, smi)
+    regions, region_bm8 = wire_phase(paths, smi)
     t = time.perf_counter()
     conformance_launches = conformance_phase(paths, smi)
     kernels_2160p(results, smi)
     log("conformance", f"phase 11 in {time.perf_counter() - t:.1f} s")
 
-    # device launches per wrapper call (every kernel must launch once) and
-    # per unpack_wire call, in the process's one profiler session
+    # device launches per wrapper call (every kernel must launch once, K8
+    # its DEVICE_LAUNCHES) and per unpack_wire call, in the process's one
+    # profiler session
+    from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import DEVICE_LAUNCHES
     counted = device_launches(calls, regions)
+    # the unpack_wire regions' K8 calls put their kernels in the same
+    # session, under the same names
+    counted["unpack_bm8"] -= DEVICE_LAUNCHES * region_bm8
     for key in results:
         n_dev = results[key]["device_launches"] = counted[key]
+        want = DEVICE_LAUNCHES if key == "unpack_bm8" else 1
         log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
-            "per wrapper call")
-        if n_dev != 1:
-            sys.exit(f"{key}: {n_dev} device launches per call, not 1")
+            f"per wrapper call")
+        if n_dev != want:
+            sys.exit(f"{key}: {n_dev} device launches per call, not {want}")
     for name in regions:
         k, ms = counted[name]
         log("wire", f"{name} (round 1 of lanes cycling the four streams): "

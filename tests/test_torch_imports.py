@@ -54,6 +54,7 @@ def test_port_imports_no_jax():
               "ops.kernels.intra_phase", "ops.kernels.deblock_phase",
               "ops.kernels.mc", "ops.kernels.intra_raster",
               "ops.kernels.deblock_raster", "ops.kernels.wavefront",
+              "ops.kernels.deblock_tables", "ops.kernels.unpack_bm8",
               "host.centropy", "dpb",
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
               "__main__", "conceal", "trace", "bitstream.sei",

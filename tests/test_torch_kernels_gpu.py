@@ -26,15 +26,24 @@ from arrow_h264_tpu_torch.ops.inter import (
 from arrow_h264_tpu_torch.ops.intra import intra_reconstruct
 from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
 from arrow_h264_tpu_torch.ops.kernels.deblock_raster import deblock_raster
+from arrow_h264_tpu_torch.ops.kernels.deblock_tables import (
+    deblock_tables as deblock_tables_k7,
+)
 from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
 from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
 from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
+from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import (
+    DEVICE_LAUNCHES, unpack_bm8,
+)
 from arrow_h264_tpu_torch.ops.synthetic import (
-    random_deblock_tables, random_intra_abi, synthetic_batch,
+    random_deblock_abi, random_deblock_tables, random_intra_abi,
+    synthetic_batch,
 )
 from arrow_h264_tpu_torch.ops.transforms import (
     make_ws_consts, residual_planes,
 )
+from arrow_h264_tpu_torch.ops.wire import _scatter_bm8
+from tools.gpu_conformance import bm8_tally, want_launches
 from tools.mc_bench import SPLITS, partitioned_motion
 
 pytestmark = pytest.mark.cuda
@@ -199,6 +208,94 @@ def test_deblock_kernels_tables(dev, tables, mb_w, mb_h, B):
         assert kernels.LAUNCHES[name] == n0[name] + 1
 
 
+def _table_abi(source, mb_w, mb_h, B, seed, dev):
+    """B pictures' deblocking fields on the card: synthetic I or P/B
+    ABIs (bS 0..4 from intra MBs, coefficients, MVs and references) or
+    random_deblock_abi (every rule of deblock_tables)."""
+    if source == "random":
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                random_deblock_abi(mb_w, mb_h, B, seed).items()}
+    abis = [synthetic_batch(mb_w, mb_h, seed + i, dev,
+                            inter=source != "synthetic_i",
+                            **({} if source == "synthetic_i" else
+                               {"intra_frac": 0.3, "bi_frac": 0.4}))[1]
+            for i in range(B)]
+    return {k: torch.cat([x[k] for x in abis]) for k in abis[0]}
+
+
+@pytest.mark.parametrize("field", [False, True], ids=["frame", "field"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", DEBLOCK_GRIDS)
+@pytest.mark.parametrize("source", ["synthetic_i", "synthetic_p", "random"])
+def test_deblock_tables_kernel(dev, source, mb_w, mb_h, B, field):
+    """K7 on B pictures: every one of the twelve tables torch.equal to
+    the plain deblock_tables (dtype and shape included), each 16-byte
+    aligned as K2/K6 need; one launch a call."""
+    a = _table_abi(source, mb_w, mb_h, B, 3 * mb_w + mb_h + B, dev)
+    want = deblock_tables(a, mb_w, mb_h, (2, -3), field)
+    n0 = kernels.LAUNCHES["deblock_tables"]
+    got = deblock_tables_k7(a, mb_w, mb_h, (2, -3), field)
+    assert kernels.LAUNCHES["deblock_tables"] == n0 + 1
+    assert list(got) == list(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert got[k].data_ptr() % 16 == 0, k
+        assert torch.equal(got[k], w), k
+
+
+def _bm8_case(w, B, br, grid, seed, dev, strided=False):
+    """B lanes of one bm8 class on the card, as the wire ships them: each
+    lane's real rows (a different count a lane) at sorted unique dense
+    rows, then padding rows at idx == grid with empty bitmaps; values
+    enough for every set bit.  strided: the three sections are views of
+    one [B, total] byte buffer, as unpack_wire reads them."""
+    rng = np.random.default_rng(seed)
+    bmw = (w + 15) // 16
+    idx = np.full((B, br), grid, np.int32)
+    bm = rng.integers(0, 1 << 16, (B, br, bmw)).astype(np.uint16)
+    for b, k in enumerate(rng.integers(br // 3, br + 1, B)):
+        idx[b, :k] = np.sort(rng.choice(grid, k, replace=False))
+        bm[b, k:] = 0
+    bm[:, ::7] = 0xFFFF
+    bm[:, 3::7] = 0
+    bv = 16 * bmw * br + 8
+    vals = rng.integers(-128, 128, (B, bv)).astype(np.int8)
+    if not strided:
+        return (torch.from_numpy(idx).to(dev),
+                torch.from_numpy(bm.view(np.int16)).to(dev),
+                torch.from_numpy(vals).to(dev))
+    o1, o2 = 4 * br, 4 * br + 2 * br * bmw
+    parts = [idx.view(np.uint8).reshape(B, -1),
+             bm.view(np.uint8).reshape(B, -1), vals.view(np.uint8),
+             np.zeros((B, 8 + (-(o2 + bv)) % 8), np.uint8)]
+    buf = torch.from_numpy(np.concatenate(parts, 1)).to(dev)
+    return (buf[:, :o1].view(torch.int32),
+            buf[:, o1:o2].view(torch.int16).reshape(B, br, bmw),
+            buf[:, o2:o2 + bv].view(torch.int8))
+
+
+# (w, rows, dense rows): the wire's classes (ldc/cdc 16/8 values a row)
+# at small sizes and at the sizes of a 1080p l4 class, and lanes whose
+# rows span many of the kernel's chunks of 1024 rows
+BM8_CASES = [(8, 1, 1), (16, 40, 60), (64, 33, 40), (16, 2500, 3000),
+             (8, 5000, 8160), (64, 3000, 32640), (16, 60000, 130560)]
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("w,br,grid", BM8_CASES)
+def test_unpack_bm8_kernel(dev, w, br, grid, B, strided):
+    """K8 on B lanes: torch.equal to the plain _scatter_bm8; one wrapper
+    launch a call."""
+    args = _bm8_case(w, B, br, grid, w + br + B, dev, strided)
+    want = _scatter_bm8(*(t.contiguous() for t in args), grid, w)
+    n0 = kernels.LAUNCHES["unpack_bm8"]
+    got = unpack_bm8(*args, grid, w)
+    assert kernels.LAUNCHES["unpack_bm8"] == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == (B, grid, w)
+    assert torch.equal(got, want)
+
+
 # frames of one MB kind, from one MB to 1080p
 ONE_KIND_GRIDS = [(1, 1), (1, 6), (6, 1), (7, 5), (120, 68)]
 
@@ -275,13 +372,14 @@ def test_wavefront_kernels(dev, order, mb_w, mb_h, B):
 
 
 def test_wavefront_kernels_launch_once(dev):
-    """One call of each of K1, K2, K5 and K6 on each of WAVEFRONT_GRIDS
-    puts that kernel on the card once: one torch.profiler session over
-    all the calls counts as many device launches of each kernel as calls
-    (a call that launched nothing would also fail test_wavefront_kernels).
-    One session, as in chip_smoke.py: on the card, sessions after the
-    first dozen or so in a process came back with no device activity at
-    all."""
+    """One call of each of K1, K2, K5, K6 and K7 on each of
+    WAVEFRONT_GRIDS puts that kernel on the card once, and one call of K8
+    its DEVICE_LAUNCHES kernels: one torch.profiler session over all the
+    calls counts as many device launches of each kernel as calls (a call
+    that launched nothing would also fail test_wavefront_kernels).  One
+    session, as in chip_smoke.py: on the card, sessions after the first
+    dozen or so in a process came back with no device activity at all,
+    and a session after another lost the records of short kernels."""
     from torch.profiler import ProfilerActivity, profile
     calls = []
     for mb_w, mb_h, B in WAVEFRONT_GRIDS:
@@ -293,6 +391,13 @@ def test_wavefront_kernels_launch_once(dev):
                                          mb_h)))
             calls.append((deblock, partial(deblock_fn, *planes, tables,
                                            mb_w, mb_h)))
+        calls.append(("deblock_tables", partial(
+            deblock_tables_k7, _table_abi("random", mb_w, mb_h, B, mb_w, dev),
+            mb_w, mb_h)))
+        grid = 16 * mb_w * mb_h
+        calls.append(("unpack_bm8", partial(
+            unpack_bm8, *_bm8_case(16, B, max(1, grid // 2), grid, mb_h,
+                                   dev), grid, 16)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -302,8 +407,9 @@ def test_wavefront_kernels_launch_once(dev):
     seen = {e.key: e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
     for name in {n for n, _ in calls}:
+        per_call = DEVICE_LAUNCHES if name == "unpack_bm8" else 1
         assert sum(c for k, c in seen.items() if f"{name}_kernel" in k) \
-            == len(WAVEFRONT_GRIDS), (name, seen)
+            == per_call * len(WAVEFRONT_GRIDS), (name, seen)
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -569,56 +675,65 @@ def test_deblock_wrappers_refuse_unaligned(dev, fn):
     ("phase", {"intra_phase", "deblock_phase", "mc_luma", "mc_chroma"}),
     ("raster", {"intra_raster", "deblock_raster", "mc_luma", "mc_chroma"})])
 def test_decoder_cuda_smoke_stream(dev, order, path):
+    """The smoke stream on the card: its golden MD5s; the order's kernels,
+    K3/K4, K7 (deblock_tables) and K8 (unpack_bm8) launched and no
+    other; K7 once a picture, K8 once a bm8 class of each picture's
+    wire."""
     from arrow_h264_tpu_torch.api import Decoder
     meta = json.loads(SMOKE.with_suffix(".json").read_text())
     kernels.reset_launches()
-    md5 = [hashlib.md5(f.planar()).hexdigest()
-           for f in Decoder(device=dev, order=order).decode_annexb(
-               SMOKE.read_bytes())]
+    with bm8_tally() as tally:
+        md5 = [hashlib.md5(f.planar()).hexdigest()
+               for f in Decoder(device=dev, order=order).decode_annexb(
+                   SMOKE.read_bytes())]
     assert md5 == meta["md5"]
-    assert {k for k, v in kernels.LAUNCHES.items() if v} == path, \
-        kernels.LAUNCHES
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == \
+        path | {"deblock_tables", "unpack_bm8"}, kernels.LAUNCHES
+    assert tally["unpacks"] == kernels.LAUNCHES["deblock_tables"] == len(md5)
+    assert kernels.LAUNCHES["unpack_bm8"] == tally["bm8"]
 
 
 @pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("stream", FIELD_1080I, ids=lambda p: p.stem)
 def test_decoder_cuda_field_stream(dev, stream, order):
     """A committed 1080i PAFF stream on the card: every woven frame equal
-    to its libavcodec MD5; the order's intra and deblock kernels launched
-    once a field, K3/K4 once a P or B field (all but the I pair)."""
+    to its libavcodec MD5; the order's intra and deblock kernels and K7
+    launched once a field, K3/K4 once a P or B field (all but the I
+    pair), K8 once a bm8 class of each field's wire."""
     from arrow_h264_tpu_torch.api import Decoder
     meta = json.loads(stream.with_suffix(".json").read_text())
     kernels.reset_launches()
-    md5 = [hashlib.md5(f.planar()).hexdigest()
-           for f in Decoder(device=dev, order=order).decode_annexb(
-               stream.read_bytes())]
+    with bm8_tally() as tally:
+        md5 = [hashlib.md5(f.planar()).hexdigest()
+               for f in Decoder(device=dev, order=order).decode_annexb(
+                   stream.read_bytes())]
     assert md5 == meta["md5"]
     fields = 2 * len(md5)
-    want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update(dict.fromkeys(ORDERS[order], fields))
-    want.update(mc_luma=fields - 2, mc_chroma=fields - 2)
-    assert kernels.LAUNCHES == want
+    assert tally["unpacks"] == fields
+    assert kernels.LAUNCHES == want_launches(
+        kernels.LAUNCHES, order, fields, fields - 2, tally["bm8"])
 
 
 @pytest.mark.parametrize("order", ORDERS)
 def test_batch_decoder_cuda(dev, order):
     """BatchDecoder(4) on the card: every lane equal to the port's CPU
     decode of the same bytes and to its golden hashes; the order's intra
-    and deblock kernels launched once a round and K3/K4 once a round with
-    an inter lane, not once a lane."""
+    and deblock kernels and K7 launched once a round and K3/K4 once a
+    round with an inter lane, not once a lane; K8 once a bm8 class of
+    each round's wire."""
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
     datas = [p.read_bytes() for p in QCIF_LANES]
     kernels.reset_launches()
-    with BatchDecoder(len(datas), device=dev, order=order) as bd:
+    with bm8_tally() as tally, \
+            BatchDecoder(len(datas), device=dev, order=order) as bd:
         outs = bd.decode(datas)
     launches = dict(kernels.LAUNCHES)
     assert bd.errors == [None] * len(datas)
     assert bd.rounds == 5 and 0 < bd.inter_rounds < bd.rounds
-    want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update(dict.fromkeys(ORDERS[order], bd.rounds))
-    want.update(mc_luma=bd.inter_rounds, mc_chroma=bd.inter_rounds)
-    assert launches == want
+    assert tally["unpacks"] == bd.wire_rounds == bd.rounds
+    assert launches == want_launches(launches, order, bd.rounds,
+                                     bd.inter_rounds, tally["bm8"])
     for p, data, frames in zip(QCIF_LANES, datas, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         ours = [f.planar() for f in frames]
@@ -640,11 +755,6 @@ FEATURE_BATCHES = [
 ]
 
 
-def _launches(order, pictures, mc_pictures):
-    want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update(dict.fromkeys(ORDERS[order], pictures))
-    want.update(mc_luma=mc_pictures, mc_chroma=mc_pictures)
-    return want
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -660,11 +770,13 @@ def test_decoder_cuda_feature_stream(dev, name, order):
     meta = json.loads(path.with_suffix(".json").read_text())
     dec = Decoder(device=dev, order=order, conceal="concealed" in meta)
     kernels.reset_launches()
-    md5 = [hashlib.md5(f.planar()).hexdigest()
-           for f in dec.decode_annexb(path.read_bytes())]
+    with bm8_tally() as tally:
+        md5 = [hashlib.md5(f.planar()).hexdigest()
+               for f in dec.decode_annexb(path.read_bytes())]
     assert md5 == meta["md5"]
-    assert kernels.LAUNCHES == _launches(order, len(meta["structure"]),
-                                         meta["mc_pictures"])
+    assert kernels.LAUNCHES == want_launches(
+        kernels.LAUNCHES, order, len(meta["structure"]),
+        meta["mc_pictures"], tally["bm8"])
     if "concealed" in meta:
         assert [list(c) for c in dec.concealed] == meta["concealed"]
 
@@ -681,12 +793,15 @@ def test_batch_decoder_cuda_features(dev, lanes, rounds, inter, order):
     equal to its MD5s, one launch a round."""
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
     kernels.reset_launches()
-    with BatchDecoder(len(lanes), device=dev, order=order) as bd:
+    with bm8_tally() as tally, \
+            BatchDecoder(len(lanes), device=dev, order=order) as bd:
         outs = bd.decode([(SMOKE.parent / f"{n}.264").read_bytes()
                           for n in lanes])
     assert bd.errors == [None] * len(lanes)
     assert (bd.rounds, bd.inter_rounds) == (rounds, inter)
-    assert kernels.LAUNCHES == _launches(order, rounds, inter)
+    assert tally["unpacks"] == bd.wire_rounds
+    assert kernels.LAUNCHES == want_launches(kernels.LAUNCHES, order, rounds,
+                                             inter, tally["bm8"])
     for n, frames in zip(lanes, outs):
         meta = json.loads((SMOKE.parent / f"{n}.json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
@@ -766,19 +881,21 @@ def test_wire_upload_cuda(dev, monkeypatch):
 def test_batch_decoder_cuda_two_shards(dev, order):
     """BatchDecoder(4) with two shards on one card: every lane equal to
     its golden hashes, every round through the wire, and the order's
-    intra and deblock kernels launched twice a round (once a shard)."""
+    intra and deblock kernels and K7 launched twice a round (once a
+    shard), K8 once a bm8 class of each shard's wire."""
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
     datas = [p.read_bytes() for p in QCIF_LANES]
     kernels.reset_launches()
-    with BatchDecoder(len(datas), device=dev, mesh=(dev, dev),
-                      order=order) as bd:
+    with bm8_tally() as tally, \
+            BatchDecoder(len(datas), device=dev, mesh=(dev, dev),
+                         order=order) as bd:
         outs = bd.decode(datas)
     assert bd.errors == [None] * len(datas)
     assert (bd.rounds, bd.wire_rounds, bd.dense_rounds) == (5, 5, 0)
-    want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update(dict.fromkeys(ORDERS[order], 2 * bd.rounds))
-    want.update(mc_luma=2 * bd.inter_rounds, mc_chroma=2 * bd.inter_rounds)
-    assert kernels.LAUNCHES == want
+    assert tally["unpacks"] == 2 * bd.rounds
+    assert kernels.LAUNCHES == want_launches(
+        kernels.LAUNCHES, order, bd.rounds, bd.inter_rounds, tally["bm8"],
+        shards=2)
     for p, frames in zip(QCIF_LANES, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \

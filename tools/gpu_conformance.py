@@ -15,10 +15,12 @@ stream).  Every frame's MD5 must equal the stream's JSON.  One line a
 config, order and decoder: BIT-EXACT, or the frames that differ (and
 their differing bytes where tools/h264ref can decode the golden here);
 then ALL BIT-EXACT or CONFORMANCE FAILURES.  On the card each decode
-must also have launched the order's intra and deblock kernels once a
-picture (a BatchDecoder round) and K3/K4 once a P/B picture (a round
-with a P/B lane).  Exit code 0 iff every frame is exact and every count
-as it must be.
+must also have launched the order's intra and deblock kernels and the
+deblock-table kernel K7 once a picture (a BatchDecoder round), K3/K4
+once a P/B picture (a round with a P/B lane), and the wire's bm8 kernel
+K8 once for each coefficient class that a wire upload shipped as bm8
+(`bm8_tally`).  Exit code 0 iff every frame is exact and every count as
+it must be.
 
 It needs only the committed streams and their JSON: no libx264 or
 libavcodec, no JAX.  The default device is the card; without one it
@@ -29,6 +31,7 @@ for the plain PyTorch versions, slow beyond CIF).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -79,26 +82,66 @@ def rounds_of(names: list[str]) -> tuple[int, int, list[int]]:
     return rounds, len(inter), mixed
 
 
+@contextlib.contextmanager
+def bm8_tally():
+    """While open, count the wire uploads that models.pipeline unpacks
+    (`unpacks`) and the coefficient classes they ship as bm8 (`bm8`),
+    from the specs unpack_wire is given: the launches K8 (unpack_bm8)
+    must make.  A dense upload unpacks nothing.  Yields the counts."""
+    from arrow_h264_tpu_torch.models import pipeline
+    tally = {"unpacks": 0, "bm8": 0}
+    unpack = pipeline.unpack_wire
+
+    def counted(buf, mb_w, mb_h, spec):
+        tally["unpacks"] += 1
+        tally["bm8"] += sum(sch == "bm8" for _, sch, _ in spec)
+        return unpack(buf, mb_w, mb_h, spec)
+
+    pipeline.unpack_wire = counted
+    try:
+        yield tally
+    finally:
+        pipeline.unpack_wire = unpack
+
+
+def want_launches(launches: dict, order: str, pictures: int, inter: int,
+                  bm8: int, shards: int = 1) -> dict:
+    """The launches a decode of `pictures` pictures (BatchDecoder rounds),
+    `inter` of them with a P/B picture, over `shards` shards must make:
+    the order's intra and deblock kernels and K7 once a picture and
+    shard, K3/K4 once an inter one, K8 `bm8` times (bm8_tally's count);
+    every other kernel of `launches` none."""
+    want = dict.fromkeys(launches, 0)
+    want.update(dict.fromkeys(KERNELS[order] + ("deblock_tables",),
+                              shards * pictures),
+                mc_luma=shards * inter, mc_chroma=shards * inter,
+                unpack_bm8=bm8)
+    return want
+
+
 def check_counts(r: dict, names: list[str], order: str, batch: bool,
                  upload: str, launches: dict) -> str:
     """'' if the card's decode `r` (of `decode`) of `names` launched each
     kernel as it must, `launches` being the wrappers' counts over it: the
-    order's intra and deblock kernels once a picture (a round) and K3/K4
-    once a P/B picture (a round with a P/B lane), with a batch's every
-    round through `upload`; else what differs."""
+    order's intra and deblock kernels and K7 once a picture (a round),
+    K3/K4 once a P/B picture (a round with a P/B lane) and K8 once a bm8
+    class of each wire upload (r["bm8"]), with a batch's every round
+    through `upload` and a stream's every picture through the wire or
+    none; else what differs."""
     rounds, inter, _ = rounds_of(names)
-    want = dict.fromkeys(launches, 0)
-    want.update(dict.fromkeys(KERNELS[order], rounds), mc_luma=inter,
-                mc_chroma=inter)
+    want = want_launches(launches, order, rounds, inter, r["bm8"])
     dec = r["decoder"]
     if batch:
         want_seen = (rounds, inter,
-                     *((rounds, 0) if upload == "wire" else (0, rounds)))
+                     *((rounds, 0) if upload == "wire" else (0, rounds)),
+                     rounds if upload == "wire" else 0)
         seen = (dec.rounds, dec.inter_rounds, dec.wire_rounds,
-                dec.dense_rounds)
-        what = "(rounds, inter, wire, dense)"
+                dec.dense_rounds, r["unpacks"])
+        what = "(rounds, inter, wire, dense, unpacks)"
     else:
-        want_seen, seen, what = rounds, dec.stats.frames, "pictures"
+        want_seen = (rounds, rounds if upload == "wire" else 0)
+        seen = (dec.stats.frames, r["unpacks"])
+        what = "(pictures, unpacks)"
     if launches == want and seen == want_seen:
         return ""
     return (f"launches {launches} in {what} {seen}; expected {want} in "
@@ -131,7 +174,8 @@ def decode(names: list[str], order: str, device: str, batch: bool,
     through Decoder.
     Returns {"what", "frames", "seconds", "peak_bytes" (the card's peak
     allocation, None on the CPU), "bad": [(lane, stream, frames that
-    differ, the lane's error, {frame: planar bytes})], "decoder"}."""
+    differ, the lane's error, {frame: planar bytes})], "decoder",
+    "unpacks", "bm8" (bm8_tally's counts)}."""
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
     data = [load(n) for n in names]
@@ -143,15 +187,16 @@ def decode(names: list[str], order: str, device: str, batch: bool,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    if batch:
-        with dec:
-            outs = dec.decode([d for d, _ in data])
-        errors = dec.errors
-    else:
-        outs = [list(dec.decode_annexb(data[0][0]))]
-        errors = [None]
-    if cuda:
-        torch.cuda.synchronize()
+    with bm8_tally() as tally:
+        if batch:
+            with dec:
+                outs = dec.decode([d for d, _ in data])
+            errors = dec.errors
+        else:
+            outs = [list(dec.decode_annexb(data[0][0]))]
+            errors = [None]
+        if cuda:
+            torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     bad = []
     for i, (frames, (_, meta), err) in enumerate(zip(outs, data, errors)):
@@ -167,7 +212,7 @@ def decode(names: list[str], order: str, device: str, batch: bool,
     return {"what": what, "frames": sum(len(o) for o in outs),
             "seconds": seconds, "bad": bad, "decoder": dec,
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda
-            else None}
+            else None, **tally}
 
 
 def config_label(cfg: int) -> str:

@@ -23,7 +23,8 @@ wire buffer (the default) or dense.  The decode runs four times:
      pack, which runs in the pool) and the output copy are the lanes'
      summed DecodeStats.  The upload is `_upload`, the round's main-thread
      upload, with --batch; without, `pack_wire_raw` and `upload_wire`, or
-     `upload_batch` for dense;
+     `upload_batch` for dense; a wire upload's device half, `unpack_wire`,
+     is also timed on its own (inside the upload's time);
   4. profiled: torch.profiler's device time per kernel, and the device's
      busy share of the pass's wall time.
 Prints a table (ms per frame, and per round with --batch), and writes the
@@ -55,19 +56,24 @@ BATCH_STREAMS = [DATA / f"{n}.264" for n in (
     "smoke_1080p_high", "batch_1080p_s1", "batch_1080p_s2", "batch_1080p_s3")]
 # (module or class, name) of the pipeline stages that are timed, by
 # (batch, upload); the intra and deblock kernels are timed through
-# pipeline.ORDERS, under the wrappers' names.  The store of a batch is
-# timed where parallel.sharding calls it.
+# pipeline.ORDERS, under the wrappers' names; `deblock_tables` is the
+# name under which the pipeline calls K7's wrapper
+# (ops/kernels/deblock_tables.py).  The store of a batch is timed where
+# parallel.sharding calls it.  `unpack_wire` (the device half of a wire
+# upload, K8 among it) is also part of `upload_wire` / `_upload`.
 SHARED = [(pipeline, s) for s in ("residual_planes", "_mc_pred",
                                   "deblock_tables")]
 STAGES = {
     (False, "wire"): [(pipeline, "pack_wire_raw"), (pipeline, "upload_wire"),
+                      (pipeline, "unpack_wire"),
                       (pipeline, "store_ref_fn")] + SHARED,
     (False, "dense"): [(pipeline, "upload_batch"),
                        (pipeline, "store_ref_fn")] + SHARED,
 }
 for _up in ("wire", "dense"):
     STAGES[True, _up] = [(batchmod.BatchDecoder, "_upload"),
-                         (shardmod, "store_refs_fn")] + SHARED
+                         (shardmod, "store_refs_fn")] + SHARED + (
+        [(pipeline, "unpack_wire")] if _up == "wire" else [])
 
 
 def decode(datas: list, order: str, batch: int, upload: str):
