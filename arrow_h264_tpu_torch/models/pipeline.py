@@ -2,15 +2,15 @@
 
 Port of `arrow_h264_tpu.models.pipeline`.  Per frame, on the device:
 
-    residual (dequant + IDCT) -> inter MC (kernels K3/K4) + weighted
-    combine -> intra (kernel K1) -> deblock tables (kernel K7) -> deblock
-    (kernel K2)
+    residual (dequant + IDCT, kernel K9) -> inter MC (kernels K3/K4) +
+    weighted combine and residual add (kernel K10) -> intra (kernel K1)
+    -> deblock tables (kernel K7) -> deblock (kernel K2)
 
 then `store_ref_fn` writes each reference picture's half-pel planes into
-its slot of the device DPB.  With order="raster" the intra and deblock
-stages run the raster-order kernels K5/K6 in place of K1/K2; every other
-stage is the same.  Every function takes a leading stream axis [B, ...];
-the single-stream `DevicePipeline` runs B = 1.
+its slot of the device DPB (kernel K11).  With order="raster" the intra
+and deblock stages run the raster-order kernels K5/K6 in place of K1/K2;
+every other stage is the same.  Every function takes a leading stream
+axis [B, ...]; the single-stream `DevicePipeline` runs B = 1.
 
 Field pictures (all-field PAFF) take the same path at field height: each
 reference field has its own DPB slot, K4 reads a per-slot vertical chroma
@@ -39,16 +39,17 @@ import torch
 
 from ..bitstream.params import PPS, SPS
 from ..ops.abi import KIND_P
-from ..ops.inter import PAD, PADC, halfpel_planes, mc_combine, pad_chroma
+from ..ops.inter import PAD, PADC, resolve_weights
 from ..ops.kernels.deblock_phase import deblock_phase
 from ..ops.kernels.deblock_raster import deblock_raster
 from ..ops.kernels.deblock_tables import deblock_tables
+from ..ops.kernels.inter_combine import inter_combine
 from ..ops.kernels.intra_phase import intra_phase
 from ..ops.kernels.intra_raster import intra_raster
 from ..ops.kernels.mc import mc_chroma, mc_luma
-from ..ops.transforms import (
-    COEFF_KEYS, _mb_mask_to_plane, make_ws_consts, residual_planes,
-)
+from ..ops.kernels.residual import residual_planes
+from ..ops.kernels.store_ref import store_refs
+from ..ops.transforms import COEFF_KEYS, make_ws_consts
 from ..ops.wire import emit_wire, pack_wire_raw, unpack_wire, wire_total
 
 ABI_DEVICE_KEYS = (
@@ -209,23 +210,6 @@ def upload_abi(abi, device, n_slots: int | None = None) -> dict:
     return {k: v[0] for k, v in upload_batch([abi], device, n_slots).items()}
 
 
-def resolve_weights(abi: dict) -> dict:
-    """Expand the per-slice weight tables to the per-cell wp [B, n, 4, 4,
-    2 (list), 3 (plane), 2 (w, o)] and logwd [B, n, 2] that the MC combine
-    reads.  No-op for ABIs that already carry dense wp/logwd."""
-    if "wtab" not in abi or "wp" in abi:
-        return abi
-    sid = abi["slice_id"].long()                                # [B, n]
-    r0 = (torch.clamp(abi["refidx"][..., 0], -1, 31) + 1).long()  # [B,n,4,4]
-    r1 = (torch.clamp(abi["refidx"][..., 1], -1, 31) + 1).long()
-    bi = torch.arange(sid.shape[0], device=sid.device)
-    t = abi["wtab"][bi[:, None, None, None], sid[:, :, None, None], r0, r1]
-    out = dict(abi)
-    out["wp"] = torch.stack([t[..., 0:2], t[..., 2:4]], 4)
-    out["logwd"] = abi["slogwd"][bi[:, None], sid]
-    return out
-
-
 def dpb_alloc(mb_w: int, mb_h: int, n_slots: int, device):
     """Dense device DPB: luma [S, 4, H + 2*PAD, W + 2*PAD] (G, b, h, j
     planes) and chroma [S, 2, H/2 + 2*PADC, W/2 + 2*PADC] uint8."""
@@ -271,20 +255,20 @@ def decode_consts(params: tuple, device, order: str = "phase") -> dict:
                 cqp_off=cqp_off, bypass=bypass, order=order, field=field)
 
 
-def _mc_pred(abi: dict, dpb_y, dpb_c, mb_w: int, mb_h: int):
-    """Inter prediction planes (pred_y, pred_cb, pred_cr) [B, ...] int32:
-    K3/K4 (mc_luma, mc_chroma) predict each list as uint8, and
-    mc_combine weights and averages the lists in int32.  Pictures without
+def _mc_pred(abi: dict, dpb_y, dpb_c, res, mb_w: int, mb_h: int):
+    """The init planes (init_y, init_cb, init_cr) [B, ...] int32 of the
+    inter MBs: K3/K4 (mc_luma, mc_chroma) predict each list as uint8, and
+    K10 (inter_combine) weights and combines the lists and adds the
+    residual planes `res` (res_y, res_cb, res_cr).  Pictures without
     `cvoff` (frames) give K4 a zero table."""
-    a = resolve_weights(abi)
-    cvoff = a.get("cvoff")
+    cvoff = abi.get("cvoff")
     if cvoff is None:
         cvoff = torch.zeros(dpb_c.shape[:2], dtype=torch.int32,
                             device=dpb_c.device)
-    return mc_combine(mc_luma(dpb_y, a["mv"], a["refslot"], mb_w, mb_h),
-                      mc_chroma(dpb_c, a["mv"], a["refslot"], cvoff, mb_w,
-                                mb_h),
-                      a["refslot"], a["wp"], a["logwd"], mb_w, mb_h)
+    return inter_combine(
+        abi, mc_luma(dpb_y, abi["mv"], abi["refslot"], mb_w, mb_h),
+        mc_chroma(dpb_c, abi["mv"], abi["refslot"], cvoff, mb_w, mb_h),
+        *res, mb_w, mb_h)
 
 
 def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
@@ -297,21 +281,12 @@ def decode_frames_batch_fn(abi_b: dict, dpb_y_b, dpb_c_b, *, mb_w: int,
     knight-move wavefront kernels K1/K2, "raster" the raster-order kernels
     K5/K6 (ORDERS).  field: the pictures are fields (deblock_tables)."""
     intra, deblock = ORDERS[order]
-    res_y, res_cb, res_cr = residual_planes(abi_b, mb_w, mb_h, ws4, ws8,
-                                            cqp_off, bypass=bypass)
+    res = residual_planes(abi_b, mb_w, mb_h, ws4, ws8, cqp_off,
+                          bypass=bypass)
     init = (None, None, None)
     if inter:
-        pred_y, pred_cb, pred_cr = _mc_pred(abi_b, dpb_y_b, dpb_c_b,
-                                            mb_w, mb_h)
-        is_inter = abi_b["kind"] >= KIND_P
-        inter_y = _mb_mask_to_plane(is_inter, mb_w, mb_h, 16)
-        inter_c = _mb_mask_to_plane(is_inter, mb_w, mb_h, 8)
-        init = (torch.where(inter_y, torch.clamp(pred_y + res_y, 0, 255), 0),
-                torch.where(inter_c, torch.clamp(pred_cb + res_cb, 0, 255),
-                            0),
-                torch.where(inter_c, torch.clamp(pred_cr + res_cr, 0, 255),
-                            0))
-    y, cb, cr = intra(abi_b, res_y, res_cb, res_cr, *init, mb_w, mb_h)
+        init = _mc_pred(abi_b, dpb_y_b, dpb_c_b, res, mb_w, mb_h)
+    y, cb, cr = intra(abi_b, *res, *init, mb_w, mb_h)
     tables = deblock_tables(abi_b, mb_w, mb_h, cqp_off, field)
     return deblock(y, cb, cr, tables, mb_w, mb_h)
 
@@ -326,15 +301,10 @@ def decode_frame_fn(abi: dict, dpb_y, dpb_c, **kw):
 def store_refs_fn(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b, cr_b) -> None:
     """One reference store for a batch: lane lanes[k]'s picture (y_b,
     cb_b, cr_b [B, ...]) goes into slot slots[k] of its DPB row (dpb_y_b
-    [B, S, 4, Hp, Wp], dpb_c_b [B, S, 2, ...]), in place, with one index
-    assignment per DPB.  The half-pel planes are computed for the storing
-    lanes only; a lane that is not in `lanes` is left untouched."""
-    if not lanes:
-        return
-    li, si = (lane_index(v, dpb_y_b.device) for v in (lanes, slots))
-    dpb_y_b[li, si] = torch.stack(halfpel_planes(y_b[li]), 1)
-    dpb_c_b[li, si] = torch.stack((pad_chroma(cb_b[li]),
-                                   pad_chroma(cr_b[li])), 1)
+    [B, S, 4, Hp, Wp], dpb_c_b [B, S, 2, ...]), in place, by K11
+    (store_refs).  The half-pel planes are computed for the storing lanes
+    only; a lane that is not in `lanes` is left untouched."""
+    store_refs(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b, cr_b)
 
 
 def store_ref_fn(dpb_y, dpb_c, slot: int, y, cb, cr) -> None:

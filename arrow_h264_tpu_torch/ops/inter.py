@@ -12,15 +12,20 @@ W/2 + 2*PADC].  The planes are edge-padded, and reads clamp to the padded
 planes: that is exactly the spec's edge extension for any MV.
 
 `mc_luma_plain` and `mc_chroma_plain` are the plain versions of the MC
-kernels (`ops/kernels/mc.py`, `csrc/mc.cu`); `mc_combine` applies the
-weighted / bi-prediction, which stays plain PyTorch on every device.
+kernels (`ops/kernels/mc.py`, `csrc/mc.cu`); `inter_init_plain` (the
+weight lookup, `mc_combine`'s weighted / bi-prediction and the residual
+add) is the plain version of the inter combine kernel
+(`ops/kernels/inter_combine.py`, `csrc/inter_combine.cu`), and
+`store_refs_plain` (`halfpel_planes`, `pad_chroma`) that of the
+reference store kernel (`ops/kernels/store_ref.py`, `csrc/store_ref.cu`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .transforms import cells_to_plane, mb_to_plane
+from .abi import KIND_P
+from .transforms import _mb_mask_to_plane, cells_to_plane, mb_to_plane
 
 PAD = 32            # luma padding; chroma uses PAD // 2
 PADC = PAD // 2
@@ -79,6 +84,19 @@ def halfpel_planes(y_plane):
 
 def pad_chroma(p):
     return edge_pad(p, PADC)
+
+
+def store_refs_plain(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b,
+                     cr_b) -> None:
+    """Lane lanes[k]'s picture (y_b, cb_b, cr_b [B, ...] uint8) into slot
+    slots[k] of its DPB row (dpb_y_b [B, S, 4, Hp, Wp], dpb_c_b [B, S, 2,
+    Hcp, Wcp]), in place: the half-pel planes and the padded chroma of
+    the storing lanes, with one index assignment per DPB."""
+    li, si = (torch.tensor(v, dtype=torch.int64).to(dpb_y_b.device)
+              for v in (lanes, slots))
+    dpb_y_b[li, si] = torch.stack(halfpel_planes(y_b[li]), 1)
+    dpb_c_b[li, si] = torch.stack((pad_chroma(cb_b[li]),
+                                   pad_chroma(cr_b[li])), 1)
 
 
 def _lists(mv, refslot, mb_w: int, mb_h: int, size: int):
@@ -193,11 +211,47 @@ def mc_combine(pred_y, pred_c, refslot, wp, logwd, mb_w: int, mb_h: int):
             combine(pred_c[:, 0, 1], pred_c[:, 1, 1], 2, 2, logwd[..., 1]))
 
 
+def resolve_weights(abi: dict) -> dict:
+    """Expand the per-slice weight tables to the per-cell wp [B, n, 4, 4,
+    2 (list), 3 (plane), 2 (w, o)] and logwd [B, n, 2] that the MC combine
+    reads.  No-op for ABIs that already carry dense wp/logwd."""
+    if "wtab" not in abi or "wp" in abi:
+        return abi
+    sid = abi["slice_id"].long()                                # [B, n]
+    r0 = (torch.clamp(abi["refidx"][..., 0], -1, 31) + 1).long()  # [B,n,4,4]
+    r1 = (torch.clamp(abi["refidx"][..., 1], -1, 31) + 1).long()
+    bi = torch.arange(sid.shape[0], device=sid.device)
+    t = abi["wtab"][bi[:, None, None, None], sid[:, :, None, None], r0, r1]
+    out = dict(abi)
+    out["wp"] = torch.stack([t[..., 0:2], t[..., 2:4]], 4)
+    out["logwd"] = abi["slogwd"][bi[:, None], sid]
+    return out
+
+
+def inter_init_plain(abi, pred_y, pred_c, res_y, res_cb, res_cr,
+                     mb_w: int, mb_h: int):
+    """The init planes of inter MBs: K3's and K4's per-list predictions
+    (pred_y [B, 2, H, W], pred_c [B, 2, 2, H/2, W/2] uint8) weighted and
+    combined (resolve_weights, mc_combine), plus the residual (res_y [B,
+    H, W], res_cb, res_cr [B, H/2, W/2] int32), clipped to 0..255 on inter
+    MBs (kind >= KIND_P) and 0 elsewhere.  Returns (init_y, init_cb,
+    init_cr) int32."""
+    a = resolve_weights(abi)
+    pred = mc_combine(pred_y, pred_c, a["refslot"], a["wp"], a["logwd"],
+                      mb_w, mb_h)
+    is_inter = abi["kind"] >= KIND_P
+    out = []
+    for p, r, size in zip(pred, (res_y, res_cb, res_cr), (16, 8, 8)):
+        inter = _mb_mask_to_plane(is_inter, mb_w, mb_h, size)
+        out.append(torch.where(inter, torch.clamp(p + r, 0, 255), 0))
+    return tuple(out)
+
+
 def inter_predict(abi, dpb_y, dpb_c, mb_w: int, mb_h: int):
     """Prediction planes of every inter block with the plain gather MC.
 
     abi: [B, n, ...] tensors with mv, refslot, cvoff [B, S] and the
-    resolved weights wp/logwd (models.pipeline.resolve_weights).  Returns
+    resolved weights wp/logwd (resolve_weights).  Returns
     (pred_y, pred_cb, pred_cr) int32 [B, ...]; intra-MB regions are
     garbage."""
     return mc_combine(

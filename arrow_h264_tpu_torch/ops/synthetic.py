@@ -5,7 +5,9 @@ package's `arrow_h264_tpu.ops.synthetic`: a random I frame, or a P/B frame
 with a bounded MV palette and sparse intra MBs.  `synthetic_batch` uploads
 one; `random_intra_abi` draws the intra fields with no structure at all,
 `random_deblock_abi` the fields the deblocking tables read,
-`random_deblock_tables` the deblocking tables.
+`random_deblock_tables` the deblocking tables, `random_residual_abi` the
+fields the residual stage reads and `random_weighted_abi` those of the
+inter combine.
 """
 
 from __future__ import annotations
@@ -197,3 +199,92 @@ def random_deblock_tables(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
     t["bs_c"].reshape(B, mb_h, mb_w, 2, 2, 4)[:, :, 0, 0, 0] = 0
     t["bs_c"].reshape(B, mb_h, mb_w, 2, 2, 4)[:, 0, :, 1, 0] = 0
     return t
+
+
+def random_residual_abi(mb_w: int, mb_h: int, B: int, seed: int) -> dict:
+    """The ABI fields that ops/transforms.py::residual_planes reads (numpy
+    int32 [B, n, ...]) with every rule in play: every MB kind (I4x4,
+    I8x8, I16, I_PCM, P, B), qp 0..51 with a third of the MBs at 0 (the
+    lossless bypass MBs) and more at the dequant switches 23/24 and 35/36
+    and at 51, tr8 on half the MBs, levels of every class inside the
+    spec's ranges (7.4.5.3: a quarter of the 4x4 and 8x8 blocks all
+    zero, the DC classes up to +-600), PCM samples 0..255, and every
+    prediction mode the DPCM reads (i4/i8 modes 0..8, i16 and chroma
+    modes 0..3).  Callers drop classes to test their absence."""
+    rng = np.random.default_rng(seed)
+    n = mb_w * mb_h
+    g = (B, n)
+    qp = rng.integers(0, 52, g)
+    qp = np.where(rng.random(g) < 0.2, rng.choice([23, 24, 35, 36, 51], g),
+                  qp)
+    qp = np.where(rng.random(g) < 0.33, 0, qp)
+
+    def levels(shape, hi):
+        v = rng.integers(-hi, hi + 1, g + shape)
+        big = rng.random(g + shape) < 0.02         # a few large levels
+        v = np.where(big, rng.integers(-2000, 2001, g + shape), v)
+        zero = rng.random(g + shape[:1]) < 0.25    # all-zero blocks
+        return np.where(zero.reshape(g + shape[:1] + (1,) *
+                                     (len(shape) - 1)), 0, v)
+
+    return {k: np.ascontiguousarray(v, np.int32) for k, v in dict(
+        kind=rng.choice(6, g, p=[.25, .15, .2, .1, .2, .1]), qp=qp,
+        tr8=rng.integers(0, 2, g),
+        luma4=levels((16, 4, 4), 40), luma8=levels((4, 8, 8), 40),
+        luma_dc=rng.integers(-600, 601, g + (4, 4)),
+        chroma_dc=rng.integers(-600, 601, g + (2, 2, 2)),
+        chroma_ac=levels((2, 2, 2, 4, 4), 30),
+        pcm=rng.integers(0, 256, g + (384,)),
+        i4_modes=rng.integers(0, 9, g + (16,)),
+        i8_modes=rng.integers(0, 9, g + (4,)),
+        i16_mode=rng.integers(0, 4, g),
+        chroma_mode=rng.integers(0, 4, g)).items()}
+
+
+def random_weighted_abi(mb_w: int, mb_h: int, B: int, seed: int,
+                        dense: bool = False) -> dict:
+    """The ABI fields that the inter combine reads (numpy int32 [B, n,
+    ...]): kind (a quarter intra), refslot and refidx with every list
+    pattern a 4x4 cell can have (both lists, list 0 only, list 1 only,
+    neither; refidx -1..31 and past it, which the lookup clamps), slices
+    of ~6 MBs (ids 0..15), and per-slice weight tables (wtab [B, 16, 33,
+    33, 3, 4], slogwd [B, 16, 2]) whose rows are explicit (w -128..127, o
+    -128..127, logwd 0..7), implicit (logwd 5, w0 + w1 = 64, o 0) or the
+    identity (logwd 0, w 1, o 0).  dense: also wp [B, n, 4, 4, 2, 3, 2]
+    and logwd [B, n, 2] drawn per cell and MB, with no tables (the dense
+    upload's fields)."""
+    rng = np.random.default_rng(seed)
+    n = mb_w * mb_h
+    g = (B, n)
+    kind = rng.choice(6, g, p=[.1, .05, .05, .05, .45, .3])
+    pattern = rng.choice(4, g + (4, 4), p=[.4, .3, .2, .1])  # bi, l0, l1, -
+    slot = rng.integers(0, 4, g + (4, 4, 2))
+    use = np.stack([np.isin(pattern, (0, 1)), np.isin(pattern, (0, 2))], -1)
+    refslot = np.where(use, slot, -1)
+    refidx = np.where(use, rng.integers(0, 34, g + (4, 4, 2)), -1)
+    refidx = np.where(rng.random(refidx.shape) < 0.05,
+                      rng.integers(-3, 40, refidx.shape), refidx)
+    sid = np.cumsum(rng.random(g) < 0.16, 1) % MAX_SLICES
+    out = dict(kind=kind, refslot=refslot, refidx=refidx, slice_id=sid)
+    if dense:
+        out["wp"] = np.stack([rng.integers(-128, 128, g + (4, 4, 2, 3)),
+                              rng.integers(-128, 128, g + (4, 4, 2, 3))], -1)
+        out["logwd"] = rng.integers(0, 8, g + (2,))
+    else:
+        wtab = np.broadcast_to(identity_wtab().astype(np.int64),
+                               (B,) + identity_wtab().shape).copy()
+        slogwd = np.zeros((B, MAX_SLICES, 2), np.int64)
+        for b in range(B):
+            for s in range(MAX_SLICES):
+                row = rng.choice(3)              # explicit, implicit, identity
+                if row == 0:
+                    wtab[b, s] = rng.integers(-128, 128, wtab.shape[2:])
+                    slogwd[b, s] = rng.integers(0, 8, 2)
+                elif row == 1:
+                    w0 = rng.integers(-64, 129, wtab.shape[2:4] + (1,))
+                    wtab[b, s, ..., 0] = w0
+                    wtab[b, s, ..., 2] = 64 - w0
+                    wtab[b, s, ..., 1] = wtab[b, s, ..., 3] = 0
+                    slogwd[b, s] = 5
+        out.update(wtab=wtab, slogwd=slogwd)
+    return {k: np.ascontiguousarray(v, np.int32) for k, v in out.items()}

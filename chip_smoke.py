@@ -23,6 +23,26 @@ Phases (each prints a line; any failure exits non-zero):
               class of the smoke stream's pictures (each alone, and
               pictures 1-4 as four lanes) and of the uhd lanes (conf_c5
               picture 1 alone and as four lanes), timed on the l4 class;
+              K9 (residual), K10 (inter_combine) and K11 (store_refs),
+              the three stages on every picture's path that the
+              reference computes in XLA: K9 torch.equal to
+              ops/transforms.py::residual_planes on the wire rounds of
+              the smoke stream's picture 1, pictures 1-4 as four lanes,
+              conf_c5's picture 1 and four lanes of it (the JSON's
+              figures), and on random_residual_abi, lossy and bypass, at
+              1080p and 4K; K10 to ops/inter.py::inter_init_plain on the
+              smoke stream's first B picture (K3's and K4's lists over
+              the DPB it reads; its wire upload with the per-slice
+              weight tables, and its dense upload) and on
+              random_weighted_abi with tables,
+              one shared table and dense weights at 1080p and 4K, B = 1
+              and 4; K11 to ops/inter.py::store_refs_plain storing into
+              DPBs of random bytes at 1080p and 4K, B = 1 and 4; then
+              every K9/K10/K11 call of real decodes (the smoke stream,
+              the lossless stream, the four 1080p streams as
+              BatchDecoder lanes and the dense- and table-weighted
+              lanes) compared with its plain version, and the phase's
+              seconds logged;
               each kernel's device launches in one wrapper call, counted
               by torch.profiler after phase 10 (every kernel must launch
               once per call, K8 its DEVICE_LAUNCHES, 3)
@@ -158,10 +178,12 @@ Phases (each prints a line; any failure exits non-zero):
               the picture's width, whose MBs it walks one after another,
               times the picture's 2 (mb_h - 1) + mb_w chain steps over
               mb_w (an estimate, not a floor; log lines only).
-In phases 6-11 every decode also launches K7 once a picture (a round;
-twice a round with two shards) and K8 once for each coefficient class
-that a wire upload ships as bm8 (tools/gpu_conformance.py bm8_tally
-counts them from the specs unpack_wire gets), none on a dense round.
+In phases 6-11 every decode also launches K7 and K9 once a picture (a
+round; twice a round with two shards), K10 with K3/K4, K8 once for each
+coefficient class that a wire upload ships as bm8 (none on a dense
+round) and K11 once for each reference store with a storing lane
+(tools/gpu_conformance.py bm8_tally counts both from the calls of
+unpack_wire and store_refs_fn).
 Then one torch.profiler session counts the device launches of each
 kernel's wrapper call and the kernels of one unpack_wire call at each B
 of phase 10 with their summed device time (`[kernels]`, `[wire]`
@@ -175,8 +197,9 @@ float32 outside the tensor cores, which no int32 rate exceeds).  Bytes
 count each input the work needs read once and each output written once,
 from this run's inputs (see the *_need functions).  No single PyTorch
 call computes H.264 intra prediction, the deblocking filter, the
-quarter-sample MC, the deblocking tables or the bm8 expansion
-bit-exactly, so `library_ms` is null for every kernel.  K7's and K8's
+quarter-sample MC, the deblocking tables, the bm8 expansion, the
+residual stage, the weighted combine or the half-sample planes
+bit-exactly, so `library_ms` is null for every kernel.  K7-K11's
 `replaces` name the reference's XLA stage: no pallas_call matches them.
 Each kernel's `launches` counts its wrapper's launches in the main path's
 run: BatchDecoder(8) over the batch lanes with the order that runs the
@@ -203,7 +226,12 @@ on synthetic_abi, K3/K4 on synthetic_abi_p over 4 random references).
 K7 and K8 also get `ms_b4`, `ms_2160p`, `ms_b4_2160p`, the bound and
 the plain version's ms of each (`bound_ms_*`, `plain_ms_*`): K7 on
 synthetic_abi_p, K8 on the l4 class of smoke pictures 1-4 as four
-lanes, of conf_c5's picture 1 and of the uhd round of four.
+lanes, of conf_c5's picture 1 and of the uhd round of four.  K9, K10
+and K11 get the same keys: K9 on the wire rounds above (smoke picture 1,
+pictures 1-4, conf_c5 picture 1, the uhd round), K10 on the smoke
+stream's B picture's wire upload (`ms`: the per-slice table lookup the
+main path runs) and random_weighted_abi with tables (the others), K11
+storing random pictures into slot 1 of 3.
 The other MC figures (launched back to back from the host without the
 device sleep, the smoke stream's pictures, the B = 8 variants) are log
 lines only.
@@ -460,12 +488,16 @@ def mc_need(out, mv, rs, *tables) -> tuple[float, float]:
 
 
 def stream_mc_inputs(data: bytes, dev) -> dict:
-    """{"P": ..., "B": ...}: the (dpb_y, dpb_c, mv, refslot) [1, ...]
-    that K3/K4 get for the first P and the first B picture of a decode
-    of `data`, each DPB as it stood when that picture was decoded.  The
-    loop is Decoder.decode_annexb's, with the inputs taken on the way."""
+    """{"P": ..., "B": ...}: the (dpb_y, dpb_c, mv, refslot, (abi, dense))
+    [1, ...] that K3/K4 (and K9, K10: abi) get for the first P and the
+    first B picture of a decode of `data`, each DPB as it stood when that
+    picture was decoded; abi is the picture's upload as the main path
+    makes it (the wire, unless the picture carries dense weights), dense
+    its dense upload (upload_abi).  The loop is Decoder.decode_annexb's,
+    with the inputs taken on the way."""
     from arrow_h264_tpu_torch.api import Decoder
-    from arrow_h264_tpu_torch.models.pipeline import upload_abi
+    from arrow_h264_tpu_torch.models.pipeline import upload_abi, upload_wire
+    from arrow_h264_tpu_torch.ops.wire import pack_wire_raw
     dec = Decoder(device=dev)
     found = {}
     for pic, poc in dec.parse_pictures(data):
@@ -474,9 +506,14 @@ def stream_mc_inputs(data: bytes, dev) -> dict:
         hdr = pic.headers[0]
         kind = "P" if hdr.is_p else "B" if hdr.is_b else None
         if kind is not None and kind not in found:
-            a = upload_abi(abi, dev)
+            dense = {k: v[None] for k, v in upload_abi(abi, dev).items()}
+            a = dense
+            if "wp" not in abi:
+                raw, spec = pack_wire_raw(abi, pipe.mb_w, pipe.mb_h)
+                a = upload_wire([(raw, spec)], spec, pipe.mb_w, pipe.mb_h,
+                                dev, pipe.n_slots, [abi.get("cvoff")])
             found[kind] = (pipe.dpb_y[None].clone(), pipe.dpb_c[None].clone(),
-                           a["mv"][None], a["refslot"][None])
+                           a["mv"], a["refslot"], (a, dense))
         planes = pipe.decode_frame(abi)
         for _ in dec.commit(pic, poc, *planes, pipe.n_slots, pipe.store_ref):
             pass
@@ -689,6 +726,338 @@ def tables_and_bm8(record, results: dict, smi: str) -> None:
         f"version; on {smi}")
 
 
+def residual_need(a: dict, bypass: bool, out) -> tuple[float, float]:
+    """Bytes and operations of the residual stage (K9), counted per MB
+    from what that MB needs: kind and qp (and tr8 where luma8 is
+    present) of every MB; a PCM MB's 384 samples and nothing else; of
+    every other MB luma8 where tr8 is set, else luma4 (and luma_dc for
+    I16), chroma_dc and chroma_ac, each where present; with bypass, the
+    DPCM modes of the QP' = 0 intra MBs; the three int32 planes written
+    once.  ~10 int32 ops an output sample (dequant, transform, select)."""
+    from arrow_h264_tpu_torch.ops.abi import (
+        KIND_I4x4, KIND_I8x8, KIND_I16, KIND_IPCM,
+    )
+    kind = a["kind"]
+    count = lambda m: int(m.sum())
+    pcm = (kind == KIND_IPCM) & ("pcm" in a)
+    use8 = (a["tr8"] > 0) & ~pcm & ("luma8" in a)
+    use4 = ~pcm & ~use8
+    words = (2 + ("luma8" in a)) * kind.numel() + 384 * count(pcm) \
+        + 256 * count(use8) + 256 * ("luma4" in a) * count(use4) \
+        + 16 * ("luma_dc" in a) * count(use4 & (kind == KIND_I16)) \
+        + (128 * ("chroma_ac" in a) + 8 * ("chroma_dc" in a)) * count(~pcm)
+    if bypass:
+        dpcm = ~pcm & (a["qp"] == 0)
+        words += sum(w * count(dpcm & (kind == k)) for k, w in
+                     ((KIND_I4x4, 16), (KIND_I8x8, 4), (KIND_I16, 1)))
+        if "chroma_ac" in a or "chroma_dc" in a:
+            words += count(dpcm & (kind <= KIND_I16))
+    return 4 * words + nbytes(*out), 10 * sum(o.numel() for o in out)
+
+
+def combine_need(a: dict, pred_y, pred_c, res, out) -> tuple[float, float]:
+    """Bytes and operations of the inter combine (K10), counted per 4x4
+    cell: kind of every MB read once; of each inter MB's cells the
+    refslots, the residual samples and the predictions of the lists the
+    cell combines (one for a unidirectional cell, two for a bi-predicted
+    one), and the weights: each inter cell's refidx and each inter MB's
+    slice_id with the distinct per-slice table rows its cells look up,
+    or the dense wp of each inter cell and logwd of each inter MB; the
+    three int32 planes written once; ~12 int32 ops a sample and list."""
+    kind = a["kind"]
+    inter = (kind >= 4)[..., None, None].expand(a["refslot"].shape[:-1])
+    used = (a["refslot"] >= 0)[inter]                   # [cells, 2]
+    cells, mbs = used.shape[0], int((kind >= 4).sum())
+    lists = cells + int(used.all(1).sum())              # (cell, list) pairs
+    per_cell = pred_y[0, 0].numel() // inter[0].numel()  # luma samples
+    per_list = per_cell * pred_y.element_size() \
+        + 2 * per_cell // 4 * pred_c.element_size()
+    res_cell = sum(r[0].numel() * r.element_size() for r in res) \
+        // inter[0].numel()
+    byts = nbytes(kind, *out) + cells * (8 + res_cell) + lists * per_list
+    if "wp" in a or "wtab" not in a:
+        byts += cells * 48 + mbs * 8                    # wp, logwd
+    else:
+        byts += cells * 8 + mbs * 4                     # refidx, slice_id
+        r = (a["refidx"].clamp(-1, 31) + 1)[inter]
+        sid = a["slice_id"][..., None, None].expand(inter.shape)[inter]
+        lane = torch.arange(kind.shape[0], device=kind.device)[
+            :, None, None, None].expand(inter.shape)[inter]
+        rows = torch.unique(((lane * 16 + sid) * 33 + r[:, 0]) * 33 + r[:, 1])
+        byts += 48 * rows.numel() + 8 * torch.unique(lane * 16 + sid).numel()
+    return byts, 12 * (per_list // pred_y.element_size()) * lists
+
+
+def store_need(pics, dpbs, lanes) -> tuple[float, float]:
+    """Bytes and operations of the reference store (K11): the storing
+    lanes' pictures read once, their slots' four padded luma planes and
+    two padded chroma planes written once; ~40 int32 ops a padded luma
+    sample (three 6-taps and the rounding)."""
+    k = len(lanes)
+    per_lane = lambda t: t[0].numel() * t.element_size()
+    slot = dpbs[0][0, 0].numel() + dpbs[1][0, 0].numel()
+    return k * (sum(per_lane(p) for p in pics) + slot), \
+        40 * k * dpbs[0][0, 0, 0].numel()
+
+
+def checked_stage_kernels():
+    """A context manager under which every K9, K10 and K11 call of the
+    decode pipeline (models/pipeline.py's residual_planes, inter_combine
+    and store_refs) is also made by its plain version on the same
+    inputs and must give the same tensors (K11's DPBs compared whole,
+    the plain version's on clones).  Yields {key: calls compared}."""
+    import contextlib
+
+    from arrow_h264_tpu_torch.models import pipeline
+    from arrow_h264_tpu_torch.ops.inter import (
+        inter_init_plain, store_refs_plain,
+    )
+    from arrow_h264_tpu_torch.ops.transforms import (
+        residual_planes as residual_plain,
+    )
+
+    @contextlib.contextmanager
+    def patched():
+        seen = {"residual": 0, "inter_combine": 0, "store_refs": 0}
+        orig = {k: getattr(pipeline, k) for k in
+                ("residual_planes", "inter_combine", "store_refs")}
+
+        def residual(*args, **kw):
+            got = orig["residual_planes"](*args, **kw)
+            compare("residual (real round)", got,
+                    residual_plain(*args, **kw))
+            seen["residual"] += 1
+            return got
+
+        def combine(*args):
+            got = orig["inter_combine"](*args)
+            compare("inter_combine (real round)", got,
+                    inter_init_plain(*args))
+            seen["inter_combine"] += 1
+            return got
+
+        def store(dpb_y, dpb_c, *rest):
+            want = (dpb_y.clone(), dpb_c.clone())
+            store_refs_plain(*want, *rest)
+            orig["store_refs"](dpb_y, dpb_c, *rest)
+            compare("store_refs (real round)", (dpb_y, dpb_c), want)
+            seen["store_refs"] += 1
+
+        pipeline.residual_planes = residual
+        pipeline.inter_combine = combine
+        pipeline.store_refs = store
+        try:
+            yield seen
+        finally:
+            for k, fn in orig.items():
+                setattr(pipeline, k, fn)
+
+    return patched()
+
+
+def stage_kernels(record, results: dict, smi: str) -> None:
+    """Phase 3's K9 (residual), K10 (inter_combine) and K11 (store_refs),
+    against their plain versions (module docstring)."""
+    t0 = time.perf_counter()
+    from arrow_h264_tpu_torch.api import Decoder
+    from arrow_h264_tpu_torch.models.pipeline import (
+        dpb_alloc, upload_wire,
+    )
+    from arrow_h264_tpu_torch.ops.inter import (
+        inter_init_plain, store_refs_plain,
+    )
+    from arrow_h264_tpu_torch.ops.kernels.inter_combine import (
+        inter_combine,
+    )
+    from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
+    from arrow_h264_tpu_torch.ops.kernels.residual import residual_planes
+    from arrow_h264_tpu_torch.ops.kernels.store_ref import store_refs
+    from arrow_h264_tpu_torch.ops.synthetic import (
+        random_residual_abi, random_weighted_abi,
+    )
+    from arrow_h264_tpu_torch.ops.transforms import (
+        make_ws_consts, residual_planes as residual_plain,
+    )
+    from arrow_h264_tpu_torch.ops.wire import merge_specs, pack_wire_raw
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    dev = torch.device("cuda")
+    ws = tuple(t.to(dev) for t in make_ws_consts([[16] * 16] * 6,
+                                                 [[16] * 64] * 2))
+    k9 = ("residual", "residual (K9)", "arrow_h264_tpu_torch/csrc/residual.cu",
+          "arrow_h264_tpu/ops/transforms.py:182 (XLA; no pallas_call)")
+    k10 = ("inter_combine", "inter_combine (K10)",
+           "arrow_h264_tpu_torch/csrc/inter_combine.cu",
+           "arrow_h264_tpu/ops/pallas/mc_kernel.py:565 _mc_combine, with "
+           "models/pipeline.py:81 resolve_weights and :184-189 (XLA; no "
+           "pallas_call)")
+    k11 = ("store_refs", "store_refs (K11)",
+           "arrow_h264_tpu_torch/csrc/store_ref.cu",
+           "arrow_h264_tpu/models/pipeline.py:298 store_ref_fn, with "
+           "ops/inter.py:36 halfpel_planes and :59 pad_chroma (XLA; no "
+           "pallas_call)")
+    sizes = {"": (MB_W, MB_H), "_2160p": (MB_W_4K, MB_H_4K)}
+
+    def figure(spec, tag, what, call, plain_call, got, want, need):
+        """Compare, time the kernel and its plain version; the JSON's
+        figures for the untagged case, `tag`'s keys for the others."""
+        torch.cuda.synchronize()
+        err = compare(f"{spec[0]} {what}", got, want)
+        ms = kernel_ms(call)
+        big = "2160p" in (tag or "") or "3840x" in what
+        plain = cuda_ms(plain_call, 5 if big else KERNEL_REPS)
+        if tag is None:
+            log("kernels", f"{spec[1]} {what}: equal, kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bound(*need)[0]:.4f} ms")
+        elif not tag:
+            record(*spec, err, ms, plain, need, what, call)
+        else:
+            results[spec[0]].update(
+                {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
+                 f"plain_ms{tag}": plain})
+            log("kernels", f"{spec[1]} {what}: equal, kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bound(*need)[0]:.4f} ms")
+
+    # K9 on real rounds: the smoke stream's picture 1 (B = 1), pictures
+    # 1-4 as four lanes of one wire round, conf_c5's picture 1 and four
+    # lanes of it (the JSON's figures); then random_residual_abi (every
+    # class, MB kind and qp; lossy and bypass) at both sizes
+    smoke, _ = stream_abis(STREAM.read_bytes(), dev)
+    uhd, _ = stream_abis((STREAM.parent / "conf_c5.264").read_bytes(), dev)
+    rounds = (("smoke picture 1", [smoke[1]], "", ""),
+              (f"smoke pictures 1-{B4} as {B4} lanes", smoke[1:1 + B4], "",
+               "_b4"),
+              ("conf_c5 picture 1", [uhd[1]], "_2160p", "_2160p"),
+              (f"uhd round 1 ({B4} conf_c5 lanes)", [uhd[1]] * B4, "_2160p",
+               "_b4_2160p"))
+    for what, abis, size, tag in rounds:
+        mb_w, mb_h = sizes[size]
+        packs = [pack_wire_raw(x, mb_w, mb_h) for x in abis]
+        a = upload_wire(packs, merge_specs([sp for _, sp in packs]), mb_w,
+                        mb_h, dev)
+        args = (a, mb_w, mb_h, *ws)
+        got = residual_planes(*args)
+        figure(k9, tag, what, partial(residual_planes, *args),
+               partial(residual_plain, *args), got, residual_plain(*args),
+               residual_need(a, False, got))
+    del smoke, uhd
+    for size, (mb_w, mb_h) in sizes.items():
+        for bypass in (False, True):
+            a = {k: torch.from_numpy(v).to(dev) for k, v in
+                 random_residual_abi(mb_w, mb_h, 1, SEED + 60).items()}
+            args = (a, mb_w, mb_h, *ws, (2, -3), bypass)
+            got = residual_planes(*args)
+            figure(k9, None, f"random_residual_abi {16 * mb_w}x"
+                   f"{16 * mb_h} bypass={bypass}",
+                   partial(residual_planes, *args),
+                   partial(residual_plain, *args), got,
+                   residual_plain(*args), residual_need(a, bypass, got))
+            del a, got
+
+    # K10 on the smoke stream's first B picture (K3's and K4's predictions
+    # over the DPB its decode reads, its own residual): its wire upload
+    # with the per-slice weight tables, as the main path gives it (the
+    # JSON's `ms`), and its dense upload; then random_weighted_abi with
+    # tables, one shared table and dense weights over random predictions
+    # and residuals
+    def combine_case(what, tag, a, pred_y, pred_c, res, mb_w, mb_h):
+        args = (a, pred_y, pred_c, *res, mb_w, mb_h)
+        got = inter_combine(*args)
+        figure(k10, tag, what, partial(inter_combine, *args),
+               partial(inter_init_plain, *args), got, inter_init_plain(*args),
+               combine_need(a, pred_y, pred_c, res, got))
+
+    dpb_y, dpb_c, *_, (a, dense) = stream_mc_inputs(STREAM.read_bytes(),
+                                                    dev)["B"]
+    if "wtab" not in a:
+        sys.exit("inter_combine: the smoke stream's B picture did not "
+                 "upload per-slice weight tables")
+    zero = torch.zeros(dpb_c.shape[:2], dtype=torch.int32, device=dev)
+    pred = (mc_luma(dpb_y, a["mv"], a["refslot"], MB_W, MB_H),
+            mc_chroma(dpb_c, a["mv"], a["refslot"], zero, MB_W, MB_H))
+    for what, tag, up in (("smoke stream B picture, wire upload", "", a),
+                          ("smoke stream B picture, dense upload", None,
+                           dense)):
+        combine_case(what, tag, up, *pred,
+                     residual_planes(up, MB_W, MB_H, *ws), MB_W, MB_H)
+    del dpb_y, dpb_c, a, dense, pred
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    for size, (mb_w, mb_h) in sizes.items():
+        H, W = 16 * mb_h, 16 * mb_w
+        for B, weights in ((1, "tables"), (1, "dense"), (B4, "tables"),
+                           (B4, "shared")):
+            a = {k: torch.from_numpy(v).to(dev) for k, v in
+                 random_weighted_abi(mb_w, mb_h, B, SEED + 62,
+                                     weights == "dense").items()}
+            if weights == "shared":
+                a["wtab"] = a["wtab"][:1].expand_as(a["wtab"])
+            pred = [torch.randint(0, 256, s, generator=g, device=dev,
+                                  dtype=torch.uint8)
+                    for s in ((B, 2, H, W), (B, 2, 2, H // 2, W // 2))]
+            res = [torch.randint(-300, 300, s, generator=g, device=dev,
+                                 dtype=torch.int32)
+                   for s in ((B, H, W), (B, H // 2, W // 2),
+                             (B, H // 2, W // 2))]
+            tag = None if weights != "tables" else \
+                ("_b4" if B > 1 else "") + size
+            if tag == "":
+                tag = None                        # `ms` is the B picture's
+            combine_case(f"random_weighted_abi {W}x{H} B={B} {weights}",
+                         tag, a, *pred, res, mb_w, mb_h)
+            del a, pred, res
+
+    # K11: random pictures into slot 1 of B-lane DPBs of 3 slots full of
+    # random bytes, B = 1 and B4, at both sizes
+    for size, (mb_w, mb_h) in sizes.items():
+        H, W = 16 * mb_h, 16 * mb_w
+        for B in (1, B4):
+            dpbs = [t.view((B, 3) + t.shape[1:]) for t in
+                    dpb_alloc(mb_w, mb_h, 3 * B, dev)]
+            for t in dpbs:
+                t.random_(0, 256, generator=g)
+            pics = [torch.randint(0, 256, s, generator=g, device=dev,
+                                  dtype=torch.uint8)
+                    for s in ((B, H, W), (B, H // 2, W // 2),
+                              (B, H // 2, W // 2))]
+            lanes, slots = list(range(B)), [1] * B
+            want = [t.clone() for t in dpbs]
+            store_refs_plain(*want, lanes, slots, *pics)
+            store_refs(*dpbs, lanes, slots, *pics)
+            figure(k11, ("_b4" if B > 1 else "") + size,
+                   f"{W}x{H} B={B} into slot 1 of 3",
+                   partial(store_refs, *dpbs, lanes, slots, *pics),
+                   partial(store_refs_plain, *[t.clone() for t in dpbs],
+                           lanes, slots, *pics),
+                   tuple(dpbs), tuple(want), store_need(pics, dpbs, lanes))
+            del dpbs, pics, want
+
+    # real rounds of the decode paths: every K9/K10/K11 call compared with
+    # its plain version on the streams whose branches the random ABIs do
+    # not reach: the smoke stream, four 1080p lanes in lockstep, the
+    # lossless stream (bypass, DPCM, PCM) and the weighted-prediction
+    # lanes (dense wp beside tables).  The 4K and field decodes are held
+    # to their goldens by the decode phases.
+    data = STREAM.parent
+    t_real = time.perf_counter()
+    with checked_stage_kernels() as seen:
+        for name in ("smoke_1080p_high", "feat_lossless_qcif"):
+            list(Decoder(device="cuda").decode_annexb(
+                (data / f"{name}.264").read_bytes()))
+        for names in ([p.stem for p in BATCH_STREAMS],
+                      ["feat_wp18", "feat_wp_table"]):
+            with BatchDecoder(len(names), device="cuda") as bd:
+                bd.decode([(data / f"{n}.264").read_bytes() for n in names])
+            if any(e is not None for e in bd.errors):
+                sys.exit(f"stage kernels, real rounds {names}: {bd.errors}")
+    if not all(seen.values()):
+        sys.exit(f"stage kernels: real rounds compared {seen}")
+    log("kernels", f"{k9[1]}, {k10[1]}, {k11[1]}: torch.equal to the plain "
+        f"versions at 1080p and 3840x2160, B = 1 and {B4}, on random ABIs "
+        f"and on every call of real decodes ({seen}, "
+        f"{time.perf_counter() - t_real:.1f} s); on {smi}")
+    log("kernels", f"stage kernels (K9-K11) in {time.perf_counter() - t0:.1f}"
+        " s")
+
+
 def batch_phase(paths: dict, smi: str) -> dict:
     """The batch phase (module docstring); returns {order: LAUNCHES of the
     main path's run, BatchDecoder(BATCH_LANES) with that order}."""
@@ -741,9 +1110,10 @@ def batch_phase(paths: dict, smi: str) -> dict:
                 sys.exit(f"{what}: lane {i} ({name}) MD5s differ from the "
                          "golden")
         want = want_launches(got, order, bd.rounds, bd.inter_rounds,
-                             tally["bm8"])
+                             tally["bm8"], stores=tally["stores"])
         if got != want or not 0 < bd.inter_rounds <= bd.rounds or \
-                not 0 < tally["bm8"] or tally["unpacks"] != bd.wire_rounds:
+                not 0 < tally["bm8"] or tally["unpacks"] != bd.wire_rounds \
+                or not 0 < tally["stores"] <= bd.rounds:
             sys.exit(f"{what}: launches {got}, expected {want} (one a round; "
                      f"{bd.rounds} rounds, {bd.inter_rounds} with an inter "
                      f"lane; unpack_bm8 once a bm8 class of the "
@@ -850,7 +1220,7 @@ def fields_phase(paths: dict, smi: str) -> dict:
     def want(order, fields, inter_fields, tally):
         """want_launches of `fields` fields (rounds) through the wire."""
         w = want_launches(kernels.LAUNCHES, order, fields, inter_fields,
-                          tally["bm8"])
+                          tally["bm8"], stores=tally["stores"])
         return w if tally["unpacks"] == fields else {**w, "unpacks": fields}
 
     def decode(order, d):
@@ -949,9 +1319,9 @@ def features_phase(paths: dict, smi: str) -> dict:
     meta = {n: json.loads((data / f"{n}.json").read_text())
             for n in FEATURE_STREAMS}
 
-    def want(order, pictures, mc_pictures, bm8):
+    def want(order, pictures, mc_pictures, tally):
         return want_launches(kernels.LAUNCHES, order, pictures, mc_pictures,
-                             bm8)
+                             tally["bm8"], stores=tally["stores"])
 
     # (a), (d) each stream alone, with each order
     launches = {}
@@ -979,7 +1349,7 @@ def features_phase(paths: dict, smi: str) -> dict:
                          f"expected {len(m['md5'])} ({m['expected']}); MD5 "
                          f"mismatch at {bad}")
             pictures = len(m["structure"])
-            w = want(order, pictures, m["mc_pictures"], tally["bm8"])
+            w = want(order, pictures, m["mc_pictures"], tally)
             if got != w or dec.stats.frames != pictures:
                 sys.exit(f"features {name} {order}: launches {got}, "
                          f"expected {w} (a picture each; K3/K4 for the "
@@ -1019,7 +1389,7 @@ def features_phase(paths: dict, smi: str) -> dict:
                         for f in frames] != md5:
                     sys.exit(f"features batch {what} {order}: lane {i} "
                              f"({names[i]}) MD5s differ")
-            w = want(order, rounds, inter, tally["bm8"])
+            w = want(order, rounds, inter, tally)
             if (bd.rounds, bd.inter_rounds, bd.dense_rounds,
                     bd.wire_rounds, tally["unpacks"]) != (
                     rounds, inter, dense, rounds - dense, rounds - dense) \
@@ -1250,7 +1620,8 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
                          f"golden: {bd.errors[i]!r}")
         k = 1 if mesh is None else len(mesh)
         want = want_launches(kernels.LAUNCHES, order, bd.rounds,
-                             bd.inter_rounds, tally["bm8"], shards=k)
+                             bd.inter_rounds, tally["bm8"], shards=k,
+                             stores=tally["stores"])
         rounds = (bd.wire_rounds, bd.dense_rounds, tally["unpacks"])
         if dict(kernels.LAUNCHES) != want or rounds != (
                 (bd.rounds, 0, k * bd.rounds) if upload == "wire"
@@ -1875,8 +2246,8 @@ def main() -> None:
     del dpbs
 
     # K3 + K4 on the smoke stream's own pictures
-    for kind, (*dpbs, mv, rs) in stream_mc_inputs(STREAM.read_bytes(),
-                                                   dev).items():
+    for kind, (*dpbs, mv, rs, _) in stream_mc_inputs(STREAM.read_bytes(),
+                                                      dev).items():
         mc_case(f"smoke stream {kind} picture", dpbs, mv, rs)
 
     # K3 + K4 at B = 8: eight synthetic_abi_p streams in one launch, each
@@ -1907,8 +2278,10 @@ def main() -> None:
                             bound_ms_b8_partitions=bound_ms)
     del dpbs
 
-    # K7 and K8, the stages the reference computes in XLA
+    # K7 and K8, then K9, K10 and K11: the stages the reference computes
+    # in XLA
     tables_and_bm8(record, results, smi)
+    stage_kernels(record, results, smi)
 
     # ---- the main paths: decode the committed 1080p High stream with each
     # order of the intra and deblock kernels
@@ -1945,13 +2318,19 @@ def main() -> None:
                      f"{len(golden['md5'])}; MD5 mismatch at frames {bad}")
         ran = {k for k, v in launches[order].items() if v}
         got = launches[order]
-        once = got["deblock_tables"] == tally["unpacks"] == len(md5)
-        if ran != set(path) | {"deblock_tables", "unpack_bm8"} or not once \
-                or got["unpack_bm8"] != tally["bm8"]:
+        once = got["deblock_tables"] == got["residual"] == \
+            tally["unpacks"] == len(md5)
+        if ran != set(path) | {"deblock_tables", "unpack_bm8", "residual",
+                               "inter_combine", "store_refs"} \
+                or not once or got["unpack_bm8"] != tally["bm8"] \
+                or got["inter_combine"] != got["mc_luma"] \
+                or not got["store_refs"] == tally["stores"] > 0:
             sys.exit(f"decode {order}: launched {got}, expected "
-                     f"{sorted(path)}, deblock_tables once a picture and "
-                     f"unpack_bm8 {tally['bm8']} times ({tally['unpacks']} "
-                     f"wire uploads of {len(md5)} pictures)")
+                     f"{sorted(path)}, deblock_tables and residual once a "
+                     f"picture, inter_combine with mc_luma, store_refs "
+                     f"{tally['stores']} times and unpack_bm8 "
+                     f"{tally['bm8']} times ({tally['unpacks']} wire uploads "
+                     f"of {len(md5)} pictures)")
         log("decode", f"order={order}: {len(md5)} frames "
             f"{golden['width']}x{golden['height']} MD5 == libavcodec golden; "
             f"{wall_s:.3f} s wall, {len(md5) / wall_s:.3f} fps (first pass "

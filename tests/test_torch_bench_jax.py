@@ -122,7 +122,8 @@ def test_wildmv_decode_equals_jax(jax_side, order):
 def test_wildmv_mc_equals_jax_pallas_patch(jax_side):
     """The JAX package's TPU MC kernels with its patch repair
     (`_mc_pred_batch`, interpret mode) == the port's MC (K3/K4's plain
-    versions + mc_combine) on every cell that predicts."""
+    versions + K10's, inter_init_plain, over zero residual planes) on
+    every cell that predicts."""
     from arrow_h264_tpu.models.pipeline import _mc_pred_batch
     dy, dc = jax_side["dpb"]
     mc = jax.jit(functools.partial(_mc_pred_batch, mb_w=MB_W, mb_h=MB_H,
@@ -131,7 +132,11 @@ def test_wildmv_mc_equals_jax_pallas_patch(jax_side):
               jax_side["slots"])
     lanes = bench.synthetic_lanes("wildmv", B, MB_W, MB_H)
     abi = pipeline.upload_batch(lanes, "cpu")
-    got = pipeline._mc_pred(abi, *_port_dpb(jax_side), MB_W, MB_H)
+    H, W = 16 * MB_H, 16 * MB_W
+    zeros = (torch.zeros((B, H, W), dtype=torch.int32),
+             *(torch.zeros((B, H // 2, W // 2), dtype=torch.int32)
+               for _ in "cc"))
+    got = pipeline._mc_pred(abi, *_port_dpb(jax_side), zeros, MB_W, MB_H)
     used = np.stack([(a["refslot"] >= 0).any(-1) & (a["kind"] >= KIND_P)
                      [:, None, None] for a in lanes])      # [B, n, 4, 4]
     m = used.reshape(B, MB_H, MB_W, 4, 4).transpose(0, 1, 3, 2, 4) \

@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
               "ops.kernels.mc", "ops.kernels.intra_raster",
               "ops.kernels.deblock_raster", "ops.kernels.wavefront",
               "ops.kernels.deblock_tables", "ops.kernels.unpack_bm8",
-              "host.centropy", "dpb",
+              "ops.kernels.residual", "ops.kernels.inter_combine",
+              "ops.kernels.store_ref", "host.centropy", "dpb",
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
               "__main__", "conceal", "trace", "bitstream.sei",
               "bitstream.fmo", "parallel.batch", "ops.wire",

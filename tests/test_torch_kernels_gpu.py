@@ -21,7 +21,8 @@ from arrow_h264_tpu_torch.ops.deblock import (
     deblock_filter_planes, deblock_tables,
 )
 from arrow_h264_tpu_torch.ops.inter import (
-    PAD, PADC, mc_chroma_plain, mc_luma_plain,
+    PAD, PADC, inter_init_plain, mc_chroma_plain, mc_luma_plain,
+    store_refs_plain,
 )
 from arrow_h264_tpu_torch.ops.intra import intra_reconstruct
 from arrow_h264_tpu_torch.ops.kernels.deblock_phase import deblock_phase
@@ -29,15 +30,20 @@ from arrow_h264_tpu_torch.ops.kernels.deblock_raster import deblock_raster
 from arrow_h264_tpu_torch.ops.kernels.deblock_tables import (
     deblock_tables as deblock_tables_k7,
 )
+from arrow_h264_tpu_torch.ops.kernels.inter_combine import inter_combine
 from arrow_h264_tpu_torch.ops.kernels.intra_phase import intra_phase
 from arrow_h264_tpu_torch.ops.kernels.intra_raster import intra_raster
 from arrow_h264_tpu_torch.ops.kernels.mc import mc_chroma, mc_luma
+from arrow_h264_tpu_torch.ops.kernels.residual import (
+    CLASS_SHAPES, residual_planes as residual_k9,
+)
+from arrow_h264_tpu_torch.ops.kernels.store_ref import store_refs
 from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import (
     DEVICE_LAUNCHES, unpack_bm8,
 )
 from arrow_h264_tpu_torch.ops.synthetic import (
     random_deblock_abi, random_deblock_tables, random_intra_abi,
-    synthetic_batch,
+    random_residual_abi, random_weighted_abi, synthetic_batch,
 )
 from arrow_h264_tpu_torch.ops.transforms import (
     make_ws_consts, residual_planes,
@@ -372,9 +378,9 @@ def test_wavefront_kernels(dev, order, mb_w, mb_h, B):
 
 
 def test_wavefront_kernels_launch_once(dev):
-    """One call of each of K1, K2, K5, K6 and K7 on each of
-    WAVEFRONT_GRIDS puts that kernel on the card once, and one call of K8
-    its DEVICE_LAUNCHES kernels: one torch.profiler session over all the
+    """One call of each of K1, K2, K5, K6, K7, K9, K10 and K11 on each
+    of WAVEFRONT_GRIDS puts that kernel on the card once, and one call of
+    K8 its DEVICE_LAUNCHES kernels: one torch.profiler session over all the
     calls counts as many device launches of each kernel as calls (a call
     that launched nothing would also fail test_wavefront_kernels).  One
     session, as in chip_smoke.py: on the card, sessions after the first
@@ -398,6 +404,15 @@ def test_wavefront_kernels_launch_once(dev):
         calls.append(("unpack_bm8", partial(
             unpack_bm8, *_bm8_case(16, B, max(1, grid // 2), grid, mb_h,
                                    dev), grid, 16)))
+        calls.append(("residual", partial(
+            residual_k9, _residual_abi(mb_w, mb_h, B, mb_w, dev), mb_w,
+            mb_h, *_ws(dev), (1, -1), True)))
+        calls.append(("inter_combine", partial(
+            inter_combine, *_combine_case(mb_w, mb_h, B, mb_w, dev, "tables"),
+            mb_w, mb_h)))
+        calls.append(("store_refs", partial(
+            store_refs, *_store_case(mb_w, mb_h, B, 2, mb_w, dev),
+            list(range(B)), [1] * B, *_pictures(mb_w, mb_h, B, mb_w, dev))))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -410,6 +425,162 @@ def test_wavefront_kernels_launch_once(dev):
         per_call = DEVICE_LAUNCHES if name == "unpack_bm8" else 1
         assert sum(c for k, c in seen.items() if f"{name}_kernel" in k) \
             == per_call * len(WAVEFRONT_GRIDS), (name, seen)
+
+
+# K9 (residual), K10 (inter_combine), K11 (store_refs)
+STAGE_GRIDS = [(1, 1), (7, 5), (9, 1), (120, 68), STRIP_4K]
+SCALED4 = [[6 + (7 * i + 3 * k) % 40 for k in range(16)] for i in range(6)]
+SCALED8 = [[6 + (5 * i + 11 * k) % 60 for k in range(64)] for i in range(2)]
+
+
+def _ws(dev, scaled=False):
+    return tuple(t.to(dev) for t in make_ws_consts(
+        SCALED4 if scaled else [[16] * 16] * 6,
+        SCALED8 if scaled else [[16] * 64] * 2))
+
+
+def _residual_abi(mb_w, mb_h, B, seed, dev, drop=()):
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            random_residual_abi(mb_w, mb_h, B, seed).items()
+            if k not in drop}
+
+
+def _check_residual(a, mb_w, mb_h, ws, cqp_off, bypass):
+    n0 = kernels.LAUNCHES["residual"]
+    got = residual_k9(a, mb_w, mb_h, *ws, cqp_off, bypass)
+    assert kernels.LAUNCHES["residual"] == n0 + 1
+    want = residual_planes(a, mb_w, mb_h, *ws, cqp_off, bypass)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bypass", [False, True], ids=["lossy", "bypass"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", STAGE_GRIDS)
+def test_residual_kernel(dev, mb_w, mb_h, B, bypass):
+    """K9 == ops/transforms.py::residual_planes on random_residual_abi
+    (every MB kind, qp 0..51, tr8, PCM, every DPCM mode), a non-flat
+    scaling matrix and both chroma QP offsets."""
+    a = _residual_abi(mb_w, mb_h, B, mb_w + B, dev)
+    _check_residual(a, mb_w, mb_h, _ws(dev, scaled=True), (2, -3), bypass)
+
+
+@pytest.mark.parametrize("drop", [
+    ("luma4",), ("luma8",), ("luma4", "luma_dc"), ("chroma_dc",),
+    ("chroma_ac",), ("chroma_dc", "chroma_ac"), ("pcm",),
+    tuple(k for k, _ in CLASS_SHAPES)], ids=lambda d: "-".join(d))
+@pytest.mark.parametrize("bypass", [False, True], ids=["lossy", "bypass"])
+def test_residual_kernel_absent_classes(dev, drop, bypass):
+    """Classes the upload leaves out read as zero, as in the plain
+    version (tr8 still picks the 8x8 result without luma4)."""
+    a = _residual_abi(7, 5, 2, 11, dev, drop)
+    _check_residual(a, 7, 5, _ws(dev), (-4, 5), bypass)
+
+
+@pytest.mark.parametrize("inter", [False, True])
+def test_residual_kernel_synthetic(dev, inter):
+    """K9 on the synthetic I and P ABIs the other kernels' tests use."""
+    _, a = synthetic_batch(120, 68, 8, dev, inter=inter)
+    _check_residual(a, 120, 68, _ws(dev), (0, 0), False)
+
+
+def _combine_case(mb_w, mb_h, B, seed, dev, weights):
+    """(abi, pred_y, pred_c, res_y, res_cb, res_cr) on the card:
+    random_weighted_abi with per-slice tables ("tables"), one table for
+    every lane ("shared", lane stride 0, as unpack_wire ships it) or
+    dense wp/logwd ("dense"); random uint8 predictions and int32
+    residuals -300..300."""
+    a = {k: torch.from_numpy(v).to(dev) for k, v in random_weighted_abi(
+        mb_w, mb_h, B, seed, weights == "dense").items()}
+    if weights == "shared":
+        a["wtab"] = a["wtab"][:1].expand_as(a["wtab"])
+    H, W = 16 * mb_h, 16 * mb_w
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pred = [torch.randint(0, 256, s, generator=g, device=dev,
+                          dtype=torch.uint8)
+            for s in ((B, 2, H, W), (B, 2, 2, H // 2, W // 2))]
+    res = [torch.randint(-300, 300, s, generator=g, device=dev,
+                         dtype=torch.int32)
+           for s in ((B, H, W), (B, H // 2, W // 2), (B, H // 2, W // 2))]
+    return a, *pred, *res
+
+
+@pytest.mark.parametrize("weights", ["tables", "shared", "dense"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", STAGE_GRIDS)
+def test_inter_combine_kernel(dev, mb_w, mb_h, B, weights):
+    """K10 == ops/inter.py::inter_init_plain: explicit and implicit
+    weights, logwd 0..7, list-1-only cells, refidx -1 and past 31, dense
+    wp; intra MBs come out 0."""
+    case = _combine_case(mb_w, mb_h, B, mb_w * 3 + B, dev, weights)
+    n0 = kernels.LAUNCHES["inter_combine"]
+    got = inter_combine(*case, mb_w, mb_h)
+    assert kernels.LAUNCHES["inter_combine"] == n0 + 1
+    want = inter_init_plain(*case, mb_w, mb_h)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def _pictures(mb_w, mb_h, B, seed, dev):
+    H, W = 16 * mb_h, 16 * mb_w
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, 256, s, generator=g, device=dev,
+                          dtype=torch.uint8)
+            for s in ((B, H, W), (B, H // 2, W // 2), (B, H // 2, W // 2))]
+
+
+def _store_case(mb_w, mb_h, B, S, seed, dev):
+    """DPBs [B, S, ...] on the card full of random bytes."""
+    H, W = 16 * mb_h, 16 * mb_w
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    return [torch.randint(0, 256, s, generator=g, device=dev,
+                          dtype=torch.uint8)
+            for s in ((B, S, 4, H + 2 * PAD, W + 2 * PAD),
+                      (B, S, 2, H // 2 + 2 * PADC, W // 2 + 2 * PADC))]
+
+
+def _check_store(dpbs, lanes, slots, pics):
+    want = [d.clone() for d in dpbs]
+    store_refs_plain(*want, lanes, slots, *pics)
+    n0 = kernels.LAUNCHES["store_refs"]
+    store_refs(*dpbs, lanes, slots, *pics)
+    assert kernels.LAUNCHES["store_refs"] == n0 + 1
+    for g, w in zip(dpbs, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes,slots", [([0], [0]), ([2, 0], [1, 2]),
+                                         ([1, 2, 0], [0, 0, 1])])
+@pytest.mark.parametrize("mb_w,mb_h", STAGE_GRIDS)
+def test_store_refs_kernel(dev, mb_w, mb_h, lanes, slots):
+    """K11 == ops/inter.py::store_refs_plain into DPBs full of other
+    bytes: the storing lanes' slots get G, b, h, j and the padded chroma
+    (borders and corners included), every other byte stays."""
+    dpbs = _store_case(mb_w, mb_h, 3, 3, mb_w + len(lanes), dev)
+    _check_store(dpbs, lanes, slots, _pictures(mb_w, mb_h, 3, mb_h, dev))
+
+
+def test_store_refs_kernel_many_lanes(dev):
+    """More storing lanes than one launch takes (kMaxLanes, 64)."""
+    B = 70
+    dpbs = _store_case(2, 1, B, 2, 5, dev)
+    _check_store(dpbs, list(range(B)), [i % 2 for i in range(B)],
+                 _pictures(2, 1, B, 6, dev))
+
+
+def test_store_refs_kernel_lane_strides(dev):
+    """Pictures that are slots of a [B, S, H, W] stack, as the bench's
+    reference_dpb stores them."""
+    B, S, mb_w, mb_h = 2, 3, 7, 5
+    H, W = 16 * mb_h, 16 * mb_w
+    g = torch.Generator(device=dev).manual_seed(9)
+    y = torch.randint(0, 256, (B, S, H, W), generator=g, device=dev,
+                      dtype=torch.uint8)
+    c = torch.randint(0, 256, (B, S, 2, H // 2, W // 2), generator=g,
+                      device=dev, dtype=torch.uint8)
+    dpbs = _store_case(mb_w, mb_h, B, S, 9, dev)
+    for s in range(S):
+        _check_store(dpbs, [0, 1], [s, s], (y[:, s], c[:, s, 0], c[:, s, 1]))
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -676,9 +847,10 @@ def test_deblock_wrappers_refuse_unaligned(dev, fn):
     ("raster", {"intra_raster", "deblock_raster", "mc_luma", "mc_chroma"})])
 def test_decoder_cuda_smoke_stream(dev, order, path):
     """The smoke stream on the card: its golden MD5s; the order's kernels,
-    K3/K4, K7 (deblock_tables) and K8 (unpack_bm8) launched and no
-    other; K7 once a picture, K8 once a bm8 class of each picture's
-    wire."""
+    K3/K4, K7 (deblock_tables), K8 (unpack_bm8), K9 (residual), K10
+    (inter_combine) and K11 (store_refs) launched and no other; K7 and K9
+    once a picture, K8 once a bm8 class of each picture's wire, K10 with
+    K3/K4, K11 once a reference picture's store."""
     from arrow_h264_tpu_torch.api import Decoder
     meta = json.loads(SMOKE.with_suffix(".json").read_text())
     kernels.reset_launches()
@@ -688,9 +860,13 @@ def test_decoder_cuda_smoke_stream(dev, order, path):
                    SMOKE.read_bytes())]
     assert md5 == meta["md5"]
     assert {k for k, v in kernels.LAUNCHES.items() if v} == \
-        path | {"deblock_tables", "unpack_bm8"}, kernels.LAUNCHES
-    assert tally["unpacks"] == kernels.LAUNCHES["deblock_tables"] == len(md5)
+        path | {"deblock_tables", "unpack_bm8", "residual", "inter_combine",
+                "store_refs"}, kernels.LAUNCHES
+    assert tally["unpacks"] == kernels.LAUNCHES["deblock_tables"] == \
+        kernels.LAUNCHES["residual"] == len(md5)
     assert kernels.LAUNCHES["unpack_bm8"] == tally["bm8"]
+    assert kernels.LAUNCHES["inter_combine"] == kernels.LAUNCHES["mc_luma"]
+    assert kernels.LAUNCHES["store_refs"] == tally["stores"] > 0
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -711,7 +887,8 @@ def test_decoder_cuda_field_stream(dev, stream, order):
     fields = 2 * len(md5)
     assert tally["unpacks"] == fields
     assert kernels.LAUNCHES == want_launches(
-        kernels.LAUNCHES, order, fields, fields - 2, tally["bm8"])
+        kernels.LAUNCHES, order, fields, fields - 2, tally["bm8"],
+        stores=tally["stores"])
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -733,7 +910,8 @@ def test_batch_decoder_cuda(dev, order):
     assert bd.rounds == 5 and 0 < bd.inter_rounds < bd.rounds
     assert tally["unpacks"] == bd.wire_rounds == bd.rounds
     assert launches == want_launches(launches, order, bd.rounds,
-                                     bd.inter_rounds, tally["bm8"])
+                                     bd.inter_rounds, tally["bm8"],
+                                     stores=tally["stores"])
     for p, data, frames in zip(QCIF_LANES, datas, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         ours = [f.planar() for f in frames]
@@ -776,7 +954,7 @@ def test_decoder_cuda_feature_stream(dev, name, order):
     assert md5 == meta["md5"]
     assert kernels.LAUNCHES == want_launches(
         kernels.LAUNCHES, order, len(meta["structure"]),
-        meta["mc_pictures"], tally["bm8"])
+        meta["mc_pictures"], tally["bm8"], stores=tally["stores"])
     if "concealed" in meta:
         assert [list(c) for c in dec.concealed] == meta["concealed"]
 
@@ -801,7 +979,8 @@ def test_batch_decoder_cuda_features(dev, lanes, rounds, inter, order):
     assert (bd.rounds, bd.inter_rounds) == (rounds, inter)
     assert tally["unpacks"] == bd.wire_rounds
     assert kernels.LAUNCHES == want_launches(kernels.LAUNCHES, order, rounds,
-                                             inter, tally["bm8"])
+                                             inter, tally["bm8"],
+                                             stores=tally["stores"])
     for n, frames in zip(lanes, outs):
         meta = json.loads((SMOKE.parent / f"{n}.json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
@@ -895,7 +1074,7 @@ def test_batch_decoder_cuda_two_shards(dev, order):
     assert tally["unpacks"] == 2 * bd.rounds
     assert kernels.LAUNCHES == want_launches(
         kernels.LAUNCHES, order, bd.rounds, bd.inter_rounds, tally["bm8"],
-        shards=2)
+        shards=2, stores=tally["stores"])
     for p, frames in zip(QCIF_LANES, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \

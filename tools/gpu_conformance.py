@@ -16,11 +16,13 @@ config, order and decoder: BIT-EXACT, or the frames that differ (and
 their differing bytes where tools/h264ref can decode the golden here);
 then ALL BIT-EXACT or CONFORMANCE FAILURES.  On the card each decode
 must also have launched the order's intra and deblock kernels and the
-deblock-table kernel K7 once a picture (a BatchDecoder round), K3/K4
-once a P/B picture (a round with a P/B lane), and the wire's bm8 kernel
-K8 once for each coefficient class that a wire upload shipped as bm8
-(`bm8_tally`).  Exit code 0 iff every frame is exact and every count as
-it must be.
+deblock-table kernel K7 and the residual kernel K9 once a picture (a
+BatchDecoder round), K3/K4 and the inter combine K10 once a P/B picture
+(a round with a P/B lane), the wire's bm8 kernel K8 once for each
+coefficient class that a wire upload shipped as bm8, and the reference
+store K11 once a store of reference pictures (a round with a storing
+lane; `bm8_tally` counts both).  Exit code 0 iff every frame is exact
+and every count as it must be.
 
 It needs only the committed streams and their JSON: no libx264 or
 libavcodec, no JAX.  The default device is the card; without one it
@@ -87,35 +89,49 @@ def bm8_tally():
     """While open, count the wire uploads that models.pipeline unpacks
     (`unpacks`) and the coefficient classes they ship as bm8 (`bm8`),
     from the specs unpack_wire is given: the launches K8 (unpack_bm8)
-    must make.  A dense upload unpacks nothing.  Yields the counts."""
+    must make (a dense upload unpacks nothing); and the reference stores
+    with a storing lane that the decoders ask store_refs_fn for
+    (`stores`, where models.pipeline and parallel.sharding call it): the
+    launches K11 (store_refs) must make.  Yields the counts."""
     from arrow_h264_tpu_torch.models import pipeline
-    tally = {"unpacks": 0, "bm8": 0}
+    from arrow_h264_tpu_torch.parallel import sharding
+    tally = {"unpacks": 0, "bm8": 0, "stores": 0}
     unpack = pipeline.unpack_wire
+    store = pipeline.store_refs_fn
 
     def counted(buf, mb_w, mb_h, spec):
         tally["unpacks"] += 1
         tally["bm8"] += sum(sch == "bm8" for _, sch, _ in spec)
         return unpack(buf, mb_w, mb_h, spec)
 
+    def counted_store(dpb_y, dpb_c, lanes, *rest):
+        tally["stores"] += bool(lanes)
+        return store(dpb_y, dpb_c, lanes, *rest)
+
     pipeline.unpack_wire = counted
+    pipeline.store_refs_fn = sharding.store_refs_fn = counted_store
     try:
         yield tally
     finally:
         pipeline.unpack_wire = unpack
+        pipeline.store_refs_fn = sharding.store_refs_fn = store
 
 
 def want_launches(launches: dict, order: str, pictures: int, inter: int,
-                  bm8: int, shards: int = 1) -> dict:
+                  bm8: int, shards: int = 1, *, stores: int) -> dict:
     """The launches a decode of `pictures` pictures (BatchDecoder rounds),
     `inter` of them with a P/B picture, over `shards` shards must make:
-    the order's intra and deblock kernels and K7 once a picture and
-    shard, K3/K4 once an inter one, K8 `bm8` times (bm8_tally's count);
-    every other kernel of `launches` none."""
+    the order's intra and deblock kernels, K7 and K9 once a picture and
+    shard, K3/K4 and K10 once an inter one, K8 `bm8` times and K11
+    `stores` times (bm8_tally's counts); every other kernel of
+    `launches` none."""
     want = dict.fromkeys(launches, 0)
-    want.update(dict.fromkeys(KERNELS[order] + ("deblock_tables",),
+    want.update(dict.fromkeys(KERNELS[order] + ("deblock_tables",
+                                                "residual"),
                               shards * pictures),
-                mc_luma=shards * inter, mc_chroma=shards * inter,
-                unpack_bm8=bm8)
+                **dict.fromkeys(("mc_luma", "mc_chroma", "inter_combine"),
+                                shards * inter),
+                unpack_bm8=bm8, store_refs=stores)
     return want
 
 
@@ -123,13 +139,15 @@ def check_counts(r: dict, names: list[str], order: str, batch: bool,
                  upload: str, launches: dict) -> str:
     """'' if the card's decode `r` (of `decode`) of `names` launched each
     kernel as it must, `launches` being the wrappers' counts over it: the
-    order's intra and deblock kernels and K7 once a picture (a round),
-    K3/K4 once a P/B picture (a round with a P/B lane) and K8 once a bm8
-    class of each wire upload (r["bm8"]), with a batch's every round
+    order's intra and deblock kernels, K7 and K9 once a picture (a round),
+    K3/K4 and K10 once a P/B picture (a round with a P/B lane), K8 once a
+    bm8 class of each wire upload (r["bm8"]) and K11 once a store with a
+    storing lane (r["stores"], at least one), with a batch's every round
     through `upload` and a stream's every picture through the wire or
     none; else what differs."""
     rounds, inter, _ = rounds_of(names)
-    want = want_launches(launches, order, rounds, inter, r["bm8"])
+    want = want_launches(launches, order, rounds, inter, r["bm8"],
+                         stores=r["stores"])
     dec = r["decoder"]
     if batch:
         want_seen = (rounds, inter,
@@ -142,7 +160,7 @@ def check_counts(r: dict, names: list[str], order: str, batch: bool,
         want_seen = (rounds, rounds if upload == "wire" else 0)
         seen = (dec.stats.frames, r["unpacks"])
         what = "(pictures, unpacks)"
-    if launches == want and seen == want_seen:
+    if launches == want and seen == want_seen and r["stores"] > 0:
         return ""
     return (f"launches {launches} in {what} {seen}; expected {want} in "
             f"{want_seen}")

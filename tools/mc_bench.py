@@ -210,7 +210,7 @@ def main() -> None:
             if fam.startswith("smoke_"):
                 if size != "1080p":
                     continue
-                *sdpbs, mv, rs = smoke[fam[-1]]
+                *sdpbs, mv, rs, _ = smoke[fam[-1]]
                 rep = lambda t: t.repeat(B, *([1] * (t.dim() - 1)))
                 run_case(case, *map(rep, (*sdpbs, mv, rs)), mb_w, mb_h, out)
                 continue
