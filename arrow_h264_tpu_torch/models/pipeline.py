@@ -21,8 +21,8 @@ The host ships a picture as one compact uint8 buffer (ops.wire, the
 default upload "wire"): `upload_wire` emits each lane's buffer into its
 row of one pinned [B, total] staging tensor, copies it with one
 non_blocking copy and scatters it back into the dense ABI on the device
-(ops.wire.unpack_wire, whose bm8 coefficient classes go through kernel
-K8).  upload="dense" ships the dense int32 ABI
+(ops.wire.unpack_wire: kernel K12, and K8 for the bm8 coefficient
+classes).  upload="dense" ships the dense int32 ABI
 (`ABI_DEVICE_KEYS`) key by key instead (`upload_batch`), as does every
 picture with dense per-cell weights (abi["wp"], the slice-row overflow of
 ops.abi), which the wire's 4-bit slice rows cannot carry.  Either way,

@@ -5,14 +5,15 @@ PyTorch version (ops/intra.py, ops/deblock.py, ops/inter.py, ops/wire.py,
 ops/transforms.py) for CPU tensors.  `LAUNCHES` counts the wrapper calls
 that launched a kernel, so a run can show that its main path went through
 the kernels.  K1-K6 replace the reference's Pallas kernels; K7
-(deblock_tables), K8 (unpack_bm8), K9 (residual), K10 (inter_combine) and
-K11 (store_refs) replace stages that the reference computes in XLA.
+(deblock_tables), K8 (unpack_bm8), K9 (residual), K10 (inter_combine),
+K11 (store_refs) and K12 (unpack_wire: the wire's sections but the bm8
+classes) replace stages that the reference computes in XLA.
 """
 
 LAUNCHES = {"intra_phase": 0, "deblock_phase": 0, "mc_luma": 0,
             "mc_chroma": 0, "intra_raster": 0, "deblock_raster": 0,
             "deblock_tables": 0, "unpack_bm8": 0, "residual": 0,
-            "inter_combine": 0, "store_refs": 0}
+            "inter_combine": 0, "store_refs": 0, "unpack_wire": 0}
 
 
 def reset_launches() -> None:

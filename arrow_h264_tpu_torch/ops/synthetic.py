@@ -7,7 +7,9 @@ one; `random_intra_abi` draws the intra fields with no structure at all,
 `random_deblock_abi` the fields the deblocking tables read,
 `random_deblock_tables` the deblocking tables, `random_residual_abi` the
 fields the residual stage reads and `random_weighted_abi` those of the
-inter combine.
+inter combine.  `forced_wire_round` makes a round of wire buffers whose
+spec is forced to the schemes of one of `WIRE_CASES` (`random_wire_abi`
+lanes through `wire_round`).
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from __future__ import annotations
 import numpy as np
 
 from .abi import (
-    MAX_SLICES, KIND_I4x4, KIND_I16, KIND_P, FrameABI, identity_wtab,
-    patch_capacity,
+    MAX_SLICES, KIND_B, KIND_I4x4, KIND_I16, KIND_IPCM, KIND_P, FrameABI,
+    empty_frame_abi, identity_wtab, patch_capacity,
 )
 from .deblock import TABLE_SHAPES
+from .wire import _ORDER, emit_wire, merge_specs, pack_wire_raw, wire_total
 from ..models.pipeline import upload_abi
 
 
@@ -288,3 +291,166 @@ def random_weighted_abi(mb_w: int, mb_h: int, B: int, seed: int,
                     slogwd[b, s] = 5
         out.update(wtab=wtab, slogwd=slogwd)
     return {k: np.ascontiguousarray(v, np.int32) for k, v in out.items()}
+
+
+def random_wire_abi(mb_w: int, mb_h: int, seed: int, *, intra="sparse",
+                    inter="nu", coeff="bm8", pcm="sparse",
+                    wtab="sparse") -> FrameABI:
+    """A host ABI of random content with the sections that the knobs ask
+    for: intra zero/sparse/dense side-info; inter zero (no P/B MB),
+    base (one motion a MB), nu (a few sub-partitioned MBs) or dense
+    (every MB); coefficients zero, bm8 (int8 levels), dense16 or dense
+    (levels past int8 or int16); pcm zero/sparse; wtab zero/sparse.
+    Slices, the deblock override and NX_FLAG refs are random too."""
+    rng = np.random.default_rng(seed)
+    n = mb_w * mb_h
+    a = empty_frame_abi(mb_w, mb_h)
+    kinds = [KIND_I4x4, KIND_I16] if inter == "zero" else \
+        [KIND_I4x4, KIND_I16, KIND_P, KIND_B]
+    a["kind"] = rng.choice(kinds, n).astype(np.int32)
+    if inter != "zero":
+        a["kind"][0] = KIND_P
+    a["qp"] = rng.integers(0, 52, n).astype(np.int32)
+    sid = rng.integers(0, 16, n).astype(np.int32)
+    a["slice_id"] = sid
+    rows = rng.integers(-12, 13, (16, 3)).astype(np.int32)
+    rows[:, 0] = rng.integers(0, 3, 16)
+    a["disable_idc"], a["alpha_off"], a["beta_off"] = rows[sid].T.copy()
+    a["deblock_off"] = (rng.random(n) < 0.2).astype(np.int32)
+    a["tr8"] = rng.integers(0, 2, n).astype(np.int32)
+    a["mb_avail"] = rng.integers(0, 2, (n, 3)).astype(np.int32)
+    a["i16_mode"] = rng.integers(0, 4, n).astype(np.int32)
+    a["chroma_mode"] = rng.integers(0, 4, n).astype(np.int32)
+    a["nz"] = rng.integers(0, 2, (n, 4, 4)).astype(np.int32)
+    a["slogwd"] = rng.integers(-128, 128, (16, 2)).astype(np.int32)
+
+    side = {"zero": 0.0, "sparse": 0.1, "dense": 1.0}[intra]
+    has = rng.random(n) < side
+    if intra != "zero":
+        has[0] = True
+    for k, hi, shape in (("i4_modes", 9, (16,)), ("i4_avail", 2, (16, 4)),
+                         ("i8_modes", 9, (4,)), ("i8_avail", 2, (4, 4))):
+        v = rng.integers(0, hi, (n,) + shape).astype(np.int32)
+        a[k] = np.where(has.reshape((n,) + (1,) * len(shape)), v, 0)
+
+    if inter != "zero":
+        live = a["kind"] >= KIND_P
+        mv = rng.integers(-600, 600, (n, 1, 1, 2, 2))
+        slot = rng.integers(0, 5, (n, 1, 1, 2))
+        slot[:, :, :, 1] = np.where(rng.random((n, 1, 1)) < 0.5, -1,
+                                    slot[:, :, :, 1])
+        mvs = np.broadcast_to(mv, (n, 4, 4, 2, 2)).copy()
+        slots = np.broadcast_to(slot, (n, 4, 4, 2)).copy()
+        split = {"base": 0.0, "nu": 0.1, "dense": 1.0}[inter]
+        nu = (rng.random(n) < split) & live
+        if inter in ("nu", "dense"):
+            nu[0] = True
+        mvs[nu] = rng.integers(-600, 600, (nu.sum(), 4, 4, 2, 2))
+        slots[nu] = rng.integers(-1, 5, (nu.sum(), 4, 4, 2))
+        cell = live[:, None, None, None]
+        a["mv"] = np.where(cell[..., None], mvs, 0).astype(np.int32)
+        a["refslot"] = np.where(cell, slots, -1).astype(np.int32)
+        a["refidx"] = np.where(a["refslot"] >= 0, a["refslot"] % 3,
+                               -1).astype(np.int32)
+        a["refid"] = np.where(a["refslot"] >= 0, 100 + a["refslot"],
+                              -1).astype(np.int32)
+        a["nx_uids"] = np.array([102], np.int64)    # slot 2: non-existing
+
+    if coeff != "zero":
+        hi = {"bm8": 100, "dense16": 3000, "dense": 70000}[coeff]
+        dens = 0.01 if coeff == "bm8" else 0.1     # bm8: few nonzero rows
+        for k in ("luma4", "luma_dc", "chroma_dc", "chroma_ac"):
+            v = rng.integers(-hi, hi + 1, a[k].shape)
+            a[k] = np.where(rng.random(a[k].shape) < dens, v,
+                            0).astype(np.int32)
+        a["luma4"].reshape(-1)[0] = hi
+
+    if pcm != "zero":
+        ipcm = rng.random(n) < 0.05
+        ipcm[-1] = True
+        a["kind"][ipcm] = KIND_IPCM
+        a["pcm"] = np.where(ipcm[:, None], rng.integers(0, 256, (n, 384)),
+                            0).astype(np.int32)
+
+    if wtab != "zero":
+        wt = identity_wtab().copy()
+        for s in rng.choice(16, 3, replace=False):
+            wt[s, rng.integers(0, 33), :, 1] = rng.integers(
+                -128, 128, (33, 4))
+        a["wtab"] = wt
+    return a
+
+
+def _shuffled(raw: dict, rng) -> dict:
+    """raw with every sparse section's rows in a random order."""
+    raw = dict(raw)
+    for idx, vals in (("in_idx", ("in_ext",)),
+                      ("nu_idx", ("nu_mv", "nu_ref")),
+                      ("pcm_idx", ("pcm_val",)), ("wt_idx", ("wt_val",))):
+        if idx in raw:
+            perm = rng.permutation(len(raw[idx]))
+            raw[idx] = raw[idx][perm]
+            for v in vals:
+                raw[v] = raw[v][perm]
+    return raw
+
+
+def wire_round(lanes: list, mb_w: int, mb_h: int, force: dict, seed: int,
+               pad: int = 24):
+    """(buf [B, total] uint8, a view of a wider array: lanes a row stride
+    apart; the target spec): each lane's ABI packed, its sparse rows
+    shuffled, emitted per the lanes' merged spec raised to `force`
+    ({field: (scheme, bucket)}: a scheme no lower, buckets no smaller)."""
+    n = mb_w * mb_h
+    rng = np.random.default_rng(seed)
+    packed = {id(a): pack_wire_raw(a, mb_w, mb_h) for a in lanes}
+    packs = [packed[id(a)] for a in lanes]
+    merged = merge_specs([sp for _, sp in packs])
+    target = []
+    for f, sch, b in merged:
+        fs, fb = force.get(f, (sch, b))
+        if _ORDER[fs] > _ORDER[sch]:
+            sch, b = fs, fb
+        elif fs == sch and _ORDER[sch] == 1:
+            b = tuple(map(max, b, fb)) if isinstance(b, tuple) else max(b, fb)
+        target.append((f, sch, b))
+    target = tuple(target)
+    total = wire_total(target, n)
+    wide = np.zeros((len(lanes), total + pad), np.uint8)
+    for i, (raw, sp) in enumerate(packs):
+        emit_wire(_shuffled(raw, rng), sp, target, n, out=wide[i, :total])
+    return wide[:, :total], target
+
+
+# case -> (the lanes' random_wire_abi knobs, one dict a lane; the forced
+# target entries of wire_round)
+WIRE_CASES = {
+    "zero": ([dict(intra="zero", inter="zero", coeff="zero", pcm="zero",
+                   wtab="zero")], {}),
+    "sparse": ([dict()], {"intra": ("sparse", 40), "inter": ("base", 48),
+                          "pcm": ("sparse", 24), "wtab": ("sparse", 6)}),
+    "base": ([dict(inter="base", intra="dense", pcm="zero", wtab="zero")],
+             {}),
+    "dense": ([dict(coeff="dense16", inter="dense", pcm="sparse")],
+              {"intra": ("dense", 0), "inter": ("dense", 0),
+               "pcm": ("dense", 0), "l8": ("dense", 0)}),
+    "dense32": ([dict(coeff="dense", intra="zero", inter="base")],
+                {"inter": ("base", 40), "wtab": ("sparse", 16)}),
+    "mixed": ([dict(intra="zero", inter="zero", coeff="zero", pcm="zero",
+                    wtab="zero"), dict(), dict(inter="base", coeff="dense16",
+                                           pcm="zero")],
+              {"pcm": ("sparse", 8)}),
+}
+
+
+def forced_wire_round(case: str, mb_w: int, mb_h: int, B: int, seed: int,
+                      distinct: int | None = None):
+    """wire_round of B lanes of WIRE_CASES[case] (their knobs cycled over
+    the lanes), each lane's ABI from its own seed; with `distinct`, only
+    that many ABIs, cycled over the lanes."""
+    knobs, force = WIRE_CASES[case]
+    k = B if distinct is None else min(B, distinct)
+    abis = [random_wire_abi(mb_w, mb_h, seed + i, **knobs[i % len(knobs)])
+            for i in range(k)]
+    return wire_round([abis[i % k] for i in range(B)], mb_w, mb_h, force,
+                      seed)

@@ -862,8 +862,19 @@ def _scatter_bm8(idx, bm, vals, grid: int, w: int):
 def unpack_wire(buf, mb_w: int, mb_h: int, spec) -> dict:
     """Wire buffers buf [B, total] uint8 (one lane a row, laid out per
     `spec`) -> dict of the dense ABI's [B, ...] int32 tensors on buf's
-    device, as decode_frames_batch_fn takes them.  All-zero coefficient
-    and PCM classes are left out (residual_planes skips them).
+    device, as decode_frames_batch_fn takes them: unpack_wire_plain for a
+    CPU buffer; for a CUDA buffer kernel K12 and, for each coefficient
+    class shipped as bm8, K8 (ops/kernels/unpack_wire.py), which raise on
+    a buffer they do not take."""
+    # imported here: the wrapper module imports this one
+    from .kernels.unpack_wire import unpack_wire as unpack_wire_kernel
+    return unpack_wire_kernel(buf, mb_w, mb_h, spec)
+
+
+def unpack_wire_plain(buf, mb_w: int, mb_h: int, spec) -> dict:
+    """The plain version of unpack_wire (eager torch, ~110 launches a
+    call), and K12's on the CPU.  All-zero coefficient and PCM classes
+    are left out (residual_planes skips them).
 
     refid is not shipped: within one picture the DPB slot identifies the
     reference, and deblock's bS test compares refids only for equality

@@ -43,9 +43,21 @@ Phases (each prints a line; any failure exits non-zero):
               BatchDecoder lanes and the dense- and table-weighted
               lanes) compared with its plain version, and the phase's
               seconds logged;
+              K12 (unpack_wire), the wire's device unpack but the bm8
+              classes: its dict (with K8's classes) torch.equal to
+              ops/wire.py::unpack_wire_plain for every key on the wire
+              rounds above (each smoke picture alone, pictures 1-4 as
+              four lanes, conf_c5's picture 1 and the uhd round of four),
+              on every picture of feat_lossless_qcif (I_PCM) and
+              feat_wp_table (weight-table rows) alone and as one round,
+              and on rounds of four random 1080p lanes forced to each of
+              ops/synthetic.py's WIRE_CASES (every scheme of every
+              section); K12 alone (bm8=False) timed on the timed rounds
+              beside its byte bound;
               each kernel's device launches in one wrapper call, counted
               by torch.profiler after phase 10 (every kernel must launch
-              once per call, K8 its DEVICE_LAUNCHES, 3)
+              once per call, K8 its DEVICE_LAUNCHES, 3, K12 one, two
+              where a section ships sparse rows)
   4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
               1080p input, every output equal to the plain version; all
               four at B = 4 (four 1080p frames in one launch each), exact
@@ -146,9 +158,13 @@ Phases (each prints a line; any failure exits non-zero):
               stream, MD5-exact, and frames/s of the single stream and
               of BatchDecoder at B = 1, 8 and 32 with each order and
               upload in turns (wire, dense, dense, wire), with the main
-              thread's upload ms a round; (d) BatchDecoder(8,
-              mesh=("cuda:0",) * 2) over the four 1080p streams with each
-              order: MD5-exact, the order's intra and deblock kernels
+              thread's upload ms a round; and after the profiler session
+              at the end, one unpack_wire call at B = 1, 8 and 32: its
+              device launches (DEVICE_LAUNCHES of K8 a bm8 class and
+              K12's, no other kernel) and their summed device ms; (d)
+              BatchDecoder(8, mesh=("cuda:0",) * 2) over the four 1080p
+              streams with each order: MD5-exact, the order's intra and
+              deblock kernels
               launched twice a round (once a shard), K3/K4 twice a round
               with an inter lane; frames/s against one shard.  Log lines
               `[wire]`.
@@ -179,11 +195,11 @@ Phases (each prints a line; any failure exits non-zero):
               times the picture's 2 (mb_h - 1) + mb_w chain steps over
               mb_w (an estimate, not a floor; log lines only).
 In phases 6-11 every decode also launches K7 and K9 once a picture (a
-round; twice a round with two shards), K10 with K3/K4, K8 once for each
-coefficient class that a wire upload ships as bm8 (none on a dense
-round) and K11 once for each reference store with a storing lane
-(tools/gpu_conformance.py bm8_tally counts both from the calls of
-unpack_wire and store_refs_fn).
+round; twice a round with two shards), K10 with K3/K4, K12 once a wire
+upload and K8 once for each coefficient class that a wire upload ships
+as bm8 (neither on a dense round) and K11 once for each reference store
+with a storing lane (tools/gpu_conformance.py bm8_tally counts them from
+the calls of unpack_wire and store_refs_fn).
 Then one torch.profiler session counts the device launches of each
 kernel's wrapper call and the kernels of one unpack_wire call at each B
 of phase 10 with their summed device time (`[kernels]`, `[wire]`
@@ -198,8 +214,8 @@ count each input the work needs read once and each output written once,
 from this run's inputs (see the *_need functions).  No single PyTorch
 call computes H.264 intra prediction, the deblocking filter, the
 quarter-sample MC, the deblocking tables, the bm8 expansion, the
-residual stage, the weighted combine or the half-sample planes
-bit-exactly, so `library_ms` is null for every kernel.  K7-K11's
+residual stage, the weighted combine, the half-sample planes or the wire
+unpack bit-exactly, so `library_ms` is null for every kernel.  K7-K12's
 `replaces` name the reference's XLA stage: no pallas_call matches them.
 Each kernel's `launches` counts its wrapper's launches in the main path's
 run: BatchDecoder(8) over the batch lanes with the order that runs the
@@ -231,7 +247,10 @@ and K11 get the same keys: K9 on the wire rounds above (smoke picture 1,
 pictures 1-4, conf_c5 picture 1, the uhd round), K10 on the smoke
 stream's B picture's wire upload (`ms`: the per-slice table lookup the
 main path runs) and random_weighted_abi with tables (the others), K11
-storing random pictures into slot 1 of 3.
+storing random pictures into slot 1 of 3.  K12 gets the same keys on
+the rounds of K8 (its `ms` K12 alone on smoke picture 1's round; its
+`plain_ms` the whole unpack_wire_plain, whose bm8 classes go through K8
+as on the path before K12).
 The other MC figures (launched back to back from the host without the
 device sleep, the smoke stream's pictures, the B = 8 variants) are log
 lines only.
@@ -522,11 +541,11 @@ def stream_mc_inputs(data: bytes, dev) -> dict:
 
 def device_launches(calls: dict, regions: dict) -> dict:
     """{key: kernels named `key`_kernel that one call of calls[key] puts
-    on the card} and {name: (kernels that one call of regions[name] puts
-    on the card, whatever their names, and their summed device ms)}, from
-    the device activities of one torch.profiler session that makes each
-    call once (a region's under a record_function range of its name,
-    whose operators' kernels it counts)."""
+    on the card} and {name: (the device activities that one call of
+    regions[name] puts on the card, whatever their names, their summed
+    device ms and their names)}, from one torch.profiler session that
+    makes each call once (a region's under a record_function range of its
+    name)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -538,20 +557,23 @@ def device_launches(calls: dict, regions: dict) -> dict:
             with record_function(name):
                 call()
             torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_events = [e for e in prof.key_averages() if e.device_type == cuda]
     out = {key: sum(e.count for e in dev_events if f"{key}_kernel" in e.key)
            for key in calls}
-
-    def kernels_under(e):
-        return list(e.kernels) + [k for c in e.cpu_children
-                                  for k in kernels_under(c)]
-
-    for name in regions:
-        ks = [k for e in prof.events() if e.name == name
-              and e.device_type == torch.autograd.DeviceType.CPU
-              for k in kernels_under(e)]
-        out[name] = (len(ks), sum(k.duration for k in ks) / 1e3)
+    # a region's device activities are those that start between its range
+    # and the next one's (each call ends in a synchronize): kernels that
+    # ctypes launches belong to no torch operator, so the range's own
+    # event lists none of them (the device's copy of each range is left
+    # out by its name)
+    starts = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.name in regions and e.device_type != cuda)
+    for k, (start, name) in enumerate(starts):
+        end = starts[k + 1][0] if k + 1 < len(starts) else float("inf")
+        ks = [e for e in prof.events() if e.device_type == cuda
+              and e.name not in regions and start <= e.time_range.start < end]
+        out[name] = (len(ks), sum(e.time_range.elapsed_us() for e in ks)
+                     / 1e3, {e.name for e in ks})
     return out
 
 
@@ -597,10 +619,11 @@ def bm8_need(idx, bm, vals, out) -> tuple[float, float]:
     return nbytes(idx, bm, vals, out), 4 * out.numel()
 
 
-def wire_bm8(abis: list, mb_w: int, mb_h: int, dev) -> list:
-    """The bm8 sections of one wire round of the host ABIs `abis` (one a
-    lane) on the card, as unpack_wire hands them to K8: [(class, idx, bm,
-    vals, grid, w)], views of the round's [B, total] buffer."""
+def wire_round(abis: list, mb_w: int, mb_h: int, dev) -> tuple:
+    """One wire round of the host ABIs `abis` (one a lane) on the card:
+    (its [B, total] buffer, its spec, and its bm8 sections as unpack_wire
+    hands them to K8: [(class, idx, bm, vals, grid, w)], views of the
+    buffer)."""
     from arrow_h264_tpu_torch.ops import wire
     n = mb_w * mb_h
     packs = [wire.pack_wire_raw(a, mb_w, mb_h) for a in abis]
@@ -609,14 +632,48 @@ def wire_bm8(abis: list, mb_w: int, mb_h: int, dev) -> list:
                                      for r, sp in packs])).to(dev)
     table, _ = wire._offsets(target, n)
     sd = {f: sch for f, sch, _ in target}
-    return [(f, *(wire._read(buf, table, f + sfx)
-                  for sfx in ("_idx", "_bm", "_val")), n * cpm, w)
-            for f, _, cpm, w in wire._COEFF_FIELDS if sd[f] == "bm8"]
+    return buf, target, [
+        (f, *(wire._read(buf, table, f + sfx)
+              for sfx in ("_idx", "_bm", "_val")), n * cpm, w)
+        for f, _, cpm, w in wire._COEFF_FIELDS if sd[f] == "bm8"]
 
 
-def tables_and_bm8(record, results: dict, smi: str) -> None:
-    """Phase 3's K7 (deblock_tables) and K8 (unpack_bm8), against their
-    plain versions (module docstring)."""
+def unpack_need(buf, n: int, spec, out: dict) -> tuple[float, float]:
+    """Bytes and operations of K12's work on a wire round: the sections it
+    reads once (all but the bm8 classes'; of a sparse section's rows only
+    those whose index lies in the picture, whose values a thread reads),
+    each of its outputs written once (neither the bm8 classes nor an
+    identity wtab, an expanded view, are its); ~4 int32 ops an output
+    word."""
+    from arrow_h264_tpu_torch.ops import wire
+    table, _ = wire._offsets(spec, n)
+    sd = {f: sch for f, sch, _ in spec}
+    bm8 = {f + sfx for f, sch in sd.items() if sch == "bm8"
+           for sfx in ("_idx", "_bm", "_val")}
+    rows_of = {"in_ext": ("in_idx", n), "nu_mv": ("nu_idx", n),
+               "nu_ref": ("nu_idx", n), "pcm_val": ("pcm_idx", n),
+               "wt_val": ("wt_idx", 16)}
+    read = 0
+    for name, (_, dt, shape) in table.items():
+        if name in bm8:
+            continue
+        size = int(np.prod(shape)) * np.dtype(dt).itemsize
+        idx, lim = rows_of.get(name, (None, 0))
+        if idx in table:
+            i = wire._read(buf, table, idx)
+            read += int(((i >= 0) & (i < lim)).sum()) * size // shape[0]
+        else:
+            read += buf.shape[0] * size
+    words = sum(v.numel() for k, v in out.items()
+                if k != "wtab" or sd["wtab"] != "zero")
+    return read + 4 * words, 4 * words
+
+
+def tables_and_wire(record, results: dict, smi: str) -> int:
+    """Phase 3's K7 (deblock_tables), K8 (unpack_bm8) and K12
+    (unpack_wire), against their plain versions (module docstring);
+    returns the device launches of the K12 call recorded for the
+    profiler session (one, two with sparse rows)."""
     from arrow_h264_tpu_torch.ops.deblock import (
         deblock_tables as tables_plain,
     )
@@ -624,10 +681,13 @@ def tables_and_bm8(record, results: dict, smi: str) -> None:
         deblock_tables,
     )
     from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import unpack_bm8
-    from arrow_h264_tpu_torch.ops.synthetic import (
-        random_deblock_abi, synthetic_batch,
+    from arrow_h264_tpu_torch.ops.kernels.unpack_wire import (
+        device_launches as k12_launches, unpack_wire as unpack_wire_k12,
     )
-    from arrow_h264_tpu_torch.ops.wire import _scatter_bm8
+    from arrow_h264_tpu_torch.ops.synthetic import (
+        WIRE_CASES, forced_wire_round, random_deblock_abi, synthetic_batch,
+    )
+    from arrow_h264_tpu_torch.ops.wire import _scatter_bm8, unpack_wire_plain
     dev = torch.device("cuda")
     cqp = (2, -3)
     k7 = ("deblock_tables", "deblock_tables (K7)",
@@ -636,6 +696,9 @@ def tables_and_bm8(record, results: dict, smi: str) -> None:
     k8 = ("unpack_bm8", "unpack_bm8 (K8)",
           "arrow_h264_tpu_torch/csrc/unpack_bm8.cu",
           "arrow_h264_tpu/ops/wire.py:1057 (XLA; no pallas_call)")
+    k12 = ("unpack_wire", "unpack_wire (K12)",
+           "arrow_h264_tpu_torch/csrc/unpack_wire.cu",
+           "arrow_h264_tpu/ops/wire.py:1072 (XLA; no pallas_call)")
 
     # K7 at 1080p and 3840x2160, B = 1 and 4: synthetic_abi_p frames (the
     # JSON's figures), random_deblock_abi, and synthetic_abi_p as fields
@@ -694,8 +757,39 @@ def tables_and_bm8(record, results: dict, smi: str) -> None:
         (f"uhd round 1 ({B4} conf_c5 lanes)", [uhd[1]] * B4, MB_W_4K,
          MB_H_4K, "_b4_2160p")]
     checked = 0
+    k12_rounds, k12_want = 0, 0
+
+    def unpack_round(what, buf, mb_w, mb_h, spec, tag=None):
+        """K12 (with K8 for the bm8 classes) against unpack_wire_plain on
+        one round, every key torch.equal; timed where `tag` is a str (K12
+        alone: bm8=False)."""
+        nonlocal k12_rounds, k12_want
+        want = unpack_wire_plain(buf, mb_w, mb_h, spec)
+        got = unpack_wire_k12(buf, mb_w, mb_h, spec)
+        torch.cuda.synchronize()
+        err = compare_tables(f"unpack_wire {what}", got, want)
+        k12_rounds += 1
+        if tag is None:
+            return
+        call = partial(unpack_wire_k12, buf, mb_w, mb_h, spec, bm8=False)
+        ms = kernel_ms(call)
+        plain = cuda_ms(partial(unpack_wire_plain, buf, mb_w, mb_h, spec),
+                        KERNEL_REPS)
+        need = unpack_need(buf, mb_w * mb_h, spec, call())
+        if not tag:
+            record(*k12, err, ms, plain, need, what, call)
+            k12_want = k12_launches(spec, mb_w * mb_h)
+        else:
+            results["unpack_wire"].update(
+                {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
+                 f"plain_ms{tag}": plain})
+            log("kernels", f"{k12[1]} {what}: equal, kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bound(*need)[0]:.4f} ms")
+
     for what, abis, mb_w, mb_h, tag in rounds:
-        for f, idx, bm, vals, grid, w in wire_bm8(abis, mb_w, mb_h, dev):
+        buf, spec, classes = wire_round(abis, mb_w, mb_h, dev)
+        unpack_round(what, buf, mb_w, mb_h, spec, tag)
+        for f, idx, bm, vals, grid, w in classes:
             want = _scatter_bm8(idx, bm, vals, grid, w)
             got = unpack_bm8(idx, bm, vals, grid, w)
             torch.cuda.synchronize()
@@ -724,6 +818,47 @@ def tables_and_bm8(record, results: dict, smi: str) -> None:
     log("kernels", f"{k8[1]}: {checked} bm8 classes of the smoke stream's "
         f"and the uhd lanes' wire rounds torch.equal to the plain "
         f"version; on {smi}")
+
+    # K12 also on the rounds of a feature stream that ships I_PCM and one
+    # that ships weight-table rows (each picture alone, then all of them
+    # as one round), and on rounds of random lanes forced to every scheme
+    t = time.perf_counter()
+    shipped = set()
+    for name, need in (("feat_lossless_qcif", ("pcm", "sparse")),
+                       ("feat_wp_table", ("wtab", "sparse"))):
+        abis, _ = stream_abis((STREAM.parent / f"{name}.264").read_bytes(),
+                              dev)
+        mb_w, mb_h = abis[0]["mb_w"], abis[0]["mb_h"]
+        for i, a in enumerate(abis + [None]):
+            lanes = abis if a is None else [a]
+            buf, spec, _ = wire_round(lanes, mb_w, mb_h, dev)
+            shipped |= {(f, sch) for f, sch, _ in spec}
+            unpack_round(f"{name} " + (f"picture {i}" if a is not None else
+                                       f"pictures 0-{i - 1} as {i} lanes"),
+                         buf, mb_w, mb_h, spec)
+        if need not in shipped:
+            sys.exit(f"unpack_wire: {name} shipped no {need[0]} section as "
+                     f"{need[1]}")
+    for case in WIRE_CASES:
+        wide, spec = forced_wire_round(case, MB_W, MB_H, B4, SEED + 60,
+                                       distinct=2)
+        buf = torch.from_numpy(wide.base).to(dev)[:, :wide.shape[1]]
+        shipped |= {(f, sch) for f, sch, _ in spec}
+        unpack_round(f"forced {case} {B4} lanes", buf, MB_W, MB_H, spec)
+    schemes = {("intra", s) for s in ("zero", "sparse", "dense")} | {
+        ("inter", s) for s in ("zero", "base", "dense")} | {
+        ("pcm", s) for s in ("zero", "sparse", "dense")} | {
+        ("wtab", s) for s in ("zero", "sparse")}
+    if not schemes <= shipped or not {"dense", "dense16"} <= {
+            sch for _, sch in shipped}:
+        sys.exit(f"unpack_wire: the rounds missed schemes "
+                 f"{sorted(schemes - shipped)}")
+    log("kernels", f"{k12[1]}: {k12_rounds} wire rounds (the smoke "
+        f"stream's, the uhd lanes', feat_lossless_qcif's and "
+        f"feat_wp_table's, and {len(WIRE_CASES)} forced to every scheme) "
+        f"torch.equal to unpack_wire_plain for every key; the feature and "
+        f"forced rounds in {time.perf_counter() - t:.1f} s; on {smi}")
+    return k12_want
 
 
 def residual_need(a: dict, bypass: bool, out) -> tuple[float, float]:
@@ -1110,7 +1245,8 @@ def batch_phase(paths: dict, smi: str) -> dict:
                 sys.exit(f"{what}: lane {i} ({name}) MD5s differ from the "
                          "golden")
         want = want_launches(got, order, bd.rounds, bd.inter_rounds,
-                             tally["bm8"], stores=tally["stores"])
+                             tally["bm8"], stores=tally["stores"],
+                             unpacks=tally["unpacks"])
         if got != want or not 0 < bd.inter_rounds <= bd.rounds or \
                 not 0 < tally["bm8"] or tally["unpacks"] != bd.wire_rounds \
                 or not 0 < tally["stores"] <= bd.rounds:
@@ -1220,7 +1356,8 @@ def fields_phase(paths: dict, smi: str) -> dict:
     def want(order, fields, inter_fields, tally):
         """want_launches of `fields` fields (rounds) through the wire."""
         w = want_launches(kernels.LAUNCHES, order, fields, inter_fields,
-                          tally["bm8"], stores=tally["stores"])
+                          tally["bm8"], stores=tally["stores"],
+                          unpacks=tally["unpacks"])
         return w if tally["unpacks"] == fields else {**w, "unpacks": fields}
 
     def decode(order, d):
@@ -1321,7 +1458,8 @@ def features_phase(paths: dict, smi: str) -> dict:
 
     def want(order, pictures, mc_pictures, tally):
         return want_launches(kernels.LAUNCHES, order, pictures, mc_pictures,
-                             tally["bm8"], stores=tally["stores"])
+                             tally["bm8"], stores=tally["stores"],
+                             unpacks=tally["unpacks"])
 
     # (a), (d) each stream alone, with each order
     launches = {}
@@ -1489,16 +1627,20 @@ def check_abi(what: str, got: dict, want: dict) -> None:
                          "dense refid")
 
 
-def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
+def wire_phase(paths: dict, smi: str) -> tuple[dict, dict]:
     """The wire phase (module docstring); returns ({"unpack_wire B=...":
-    one call of unpack_wire on the card at that B}, the bm8 classes those
-    calls expand: K8 calls) for the profiler session."""
+    one call of unpack_wire on the card at that B}, {the same name: (the
+    bm8 classes the call expands, K8 calls; K12's device launches)}) for
+    the profiler session."""
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.models.pipeline import (
         ABI_DEVICE_KEYS, upload_batch, upload_nbytes, upload_wire,
         wire_staging,
     )
     from arrow_h264_tpu_torch.ops import kernels
+    from arrow_h264_tpu_torch.ops.kernels.unpack_wire import (
+        device_launches as k12_launches,
+    )
     from arrow_h264_tpu_torch.ops.transforms import COEFF_KEYS
     from arrow_h264_tpu_torch.ops.wire import (
         emit_wire, merge_specs, pack_wire_raw, unpack_wire, wire_total,
@@ -1543,7 +1685,7 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
         f"{max(dense_b)}), {mean_d / mean_w:.2f}x; pack_wire_raw {1e3 * statistics.mean(pack_s):.3f} ms a picture "
         f"(min {1e3 * min(pack_s):.3f}, max {1e3 * max(pack_s):.3f}), one "
         f"host thread; on {smi}")
-    regions, region_bm8 = {}, 0
+    regions, region_launches = {}, {}
     for B in WIRE_BATCHES:
         # round 1 of B lanes cycling the four streams (P pictures)
         abis = [streams[i % len(streams)][0][1] for i in range(B)]
@@ -1564,7 +1706,9 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
         call = partial(unpack_wire, dbuf, MB_W, MB_H, target)
         unpack_ms = cuda_ms(call, KERNEL_REPS, ROUNDS)
         regions[f"unpack_wire B={B}"] = call
-        region_bm8 += sum(sch == "bm8" for _, sch, _ in target)
+        region_launches[f"unpack_wire B={B}"] = (
+            sum(sch == "bm8" for _, sch, _ in target),
+            k12_launches(target, n))
         staged = [torch.from_numpy(np.stack(
             [np.asarray(a[k]) for a in abis]).astype(np.int32)).pin_memory()
             for k in ABI_DEVICE_KEYS
@@ -1621,7 +1765,7 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
         k = 1 if mesh is None else len(mesh)
         want = want_launches(kernels.LAUNCHES, order, bd.rounds,
                              bd.inter_rounds, tally["bm8"], shards=k,
-                             stores=tally["stores"])
+                             stores=tally["stores"], unpacks=tally["unpacks"])
         rounds = (bd.wire_rounds, bd.dense_rounds, tally["unpacks"])
         if dict(kernels.LAUNCHES) != want or rounds != (
                 (bd.rounds, 0, k * bd.rounds) if upload == "wire"
@@ -1661,7 +1805,7 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, int]:
                 f"{1 if shards is None else SHARDS} shard(s) on one card: "
                 f"every lane MD5 == golden; "
                 f"{batch(BATCH_LANES, order, 'wire', shards)}; on {smi}")
-    return regions, region_bm8
+    return regions, region_launches
 
 
 def conformance_phase(paths: dict, smi: str) -> dict:
@@ -2280,7 +2424,7 @@ def main() -> None:
 
     # K7 and K8, then K9, K10 and K11: the stages the reference computes
     # in XLA
-    tables_and_bm8(record, results, smi)
+    k12_want = tables_and_wire(record, results, smi)
     stage_kernels(record, results, smi)
 
     # ---- the main paths: decode the committed 1080p High stream with each
@@ -2319,16 +2463,17 @@ def main() -> None:
         ran = {k for k, v in launches[order].items() if v}
         got = launches[order]
         once = got["deblock_tables"] == got["residual"] == \
-            tally["unpacks"] == len(md5)
+            got["unpack_wire"] == tally["unpacks"] == len(md5)
         if ran != set(path) | {"deblock_tables", "unpack_bm8", "residual",
-                               "inter_combine", "store_refs"} \
+                               "inter_combine", "store_refs", "unpack_wire"} \
                 or not once or got["unpack_bm8"] != tally["bm8"] \
                 or got["inter_combine"] != got["mc_luma"] \
                 or not got["store_refs"] == tally["stores"] > 0:
             sys.exit(f"decode {order}: launched {got}, expected "
-                     f"{sorted(path)}, deblock_tables and residual once a "
-                     f"picture, inter_combine with mc_luma, store_refs "
-                     f"{tally['stores']} times and unpack_bm8 "
+                     f"{sorted(path)}, deblock_tables, residual and "
+                     f"unpack_wire once a picture, inter_combine with "
+                     f"mc_luma, store_refs {tally['stores']} times and "
+                     f"unpack_bm8 "
                      f"{tally['bm8']} times ({tally['unpacks']} wire uploads "
                      f"of {len(md5)} pictures)")
         log("decode", f"order={order}: {len(md5)} frames "
@@ -2343,32 +2488,43 @@ def main() -> None:
     batch_launches = batch_phase(paths, smi)
     field_launches = fields_phase(paths, smi)
     feature_launches = features_phase(paths, smi)
-    regions, region_bm8 = wire_phase(paths, smi)
+    regions, region_launches = wire_phase(paths, smi)
     t = time.perf_counter()
     conformance_launches = conformance_phase(paths, smi)
     kernels_2160p(results, smi)
     log("conformance", f"phase 11 in {time.perf_counter() - t:.1f} s")
 
     # device launches per wrapper call (every kernel must launch once, K8
-    # its DEVICE_LAUNCHES) and per unpack_wire call, in the process's one
-    # profiler session
+    # its DEVICE_LAUNCHES, K12 one or two) and per unpack_wire call, in the
+    # process's one profiler session
     from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import DEVICE_LAUNCHES
     counted = device_launches(calls, regions)
-    # the unpack_wire regions' K8 calls put their kernels in the same
-    # session, under the same names
-    counted["unpack_bm8"] -= DEVICE_LAUNCHES * region_bm8
+    # the unpack_wire regions' K8 and K12 calls put their kernels in the
+    # same session, under the same names
+    counted["unpack_bm8"] -= DEVICE_LAUNCHES * sum(
+        b for b, _ in region_launches.values())
+    counted["unpack_wire"] -= sum(k for _, k in region_launches.values())
     for key in results:
         n_dev = results[key]["device_launches"] = counted[key]
-        want = DEVICE_LAUNCHES if key == "unpack_bm8" else 1
+        want = {"unpack_bm8": DEVICE_LAUNCHES,
+                "unpack_wire": k12_want}.get(key, 1)
         log("kernels", f"{results[key]['name']}: {n_dev} device launch(es) "
             f"per wrapper call")
         if n_dev != want:
             sys.exit(f"{key}: {n_dev} device launches per call, not {want}")
     for name in regions:
-        k, ms = counted[name]
+        k, ms, names = counted[name]
+        bm8, k12 = region_launches[name]
         log("wire", f"{name} (round 1 of lanes cycling the four streams): "
-            f"{k} device launches per call, {ms:.4f} ms of kernel time "
-            f"summed (torch.profiler); on {smi}")
+            f"{k} device launches per call ({DEVICE_LAUNCHES} x {bm8} bm8 "
+            f"classes, K8, + {k12}, K12), {ms:.4f} ms of kernel time summed "
+            f"(torch.profiler); on {smi}")
+        if k != DEVICE_LAUNCHES * bm8 + k12 or not all(
+                "unpack_bm8_kernel" in s or "unpack_wire_kernel" in s
+                for s in names):
+            sys.exit(f"{name}: {k} device launches {sorted(names)}, "
+                     f"expected only K8's ({DEVICE_LAUNCHES} x {bm8}) and "
+                     f"K12's ({k12})")
 
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):

@@ -56,7 +56,8 @@ def test_port_imports_no_jax():
               "ops.kernels.deblock_raster", "ops.kernels.wavefront",
               "ops.kernels.deblock_tables", "ops.kernels.unpack_bm8",
               "ops.kernels.residual", "ops.kernels.inter_combine",
-              "ops.kernels.store_ref", "host.centropy", "dpb",
+              "ops.kernels.store_ref", "ops.kernels.unpack_wire",
+              "host.centropy", "dpb",
               "bitstream.slicehdr", "mb.cabac_parse", "ops.abi",
               "__main__", "conceal", "trace", "bitstream.sei",
               "bitstream.fmo", "parallel.batch", "ops.wire",

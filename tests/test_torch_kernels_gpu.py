@@ -41,14 +41,20 @@ from arrow_h264_tpu_torch.ops.kernels.store_ref import store_refs
 from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import (
     DEVICE_LAUNCHES, unpack_bm8,
 )
+from arrow_h264_tpu_torch.ops.kernels.unpack_wire import (
+    device_launches as k12_launches, unpack_wire as unpack_wire_k12,
+)
 from arrow_h264_tpu_torch.ops.synthetic import (
-    random_deblock_abi, random_deblock_tables, random_intra_abi,
-    random_residual_abi, random_weighted_abi, synthetic_batch,
+    WIRE_CASES, forced_wire_round, random_deblock_abi, random_deblock_tables,
+    random_intra_abi, random_residual_abi, random_weighted_abi,
+    synthetic_batch,
 )
 from arrow_h264_tpu_torch.ops.transforms import (
     make_ws_consts, residual_planes,
 )
-from arrow_h264_tpu_torch.ops.wire import _scatter_bm8
+from arrow_h264_tpu_torch.ops.wire import (
+    _scatter_bm8, unpack_wire, unpack_wire_plain,
+)
 from tools.gpu_conformance import bm8_tally, want_launches
 from tools.mc_bench import SPLITS, partitioned_motion
 
@@ -302,6 +308,78 @@ def test_unpack_bm8_kernel(dev, w, br, grid, B, strided):
     assert torch.equal(got, want)
 
 
+def _wire_round(case, mb_w, mb_h, B, dev):
+    """(buf [B, total] uint8 on the card, lanes a row stride apart; spec):
+    a wire round of WIRE_CASES[case] (ops/synthetic.py), its lanes
+    cycling four random ABIs."""
+    buf, spec = forced_wire_round(case, mb_w, mb_h, B, mb_w + B, distinct=4)
+    wide = torch.from_numpy(buf.base).to(dev)
+    return wide[:, :buf.shape[1]], spec
+
+
+def _check_unpack(buf, mb_w, mb_h, spec):
+    """K12 (and K8 for the bm8 classes) torch.equal to unpack_wire_plain
+    for every key; one K12 wrapper launch, one K8 launch a bm8 class."""
+    want = unpack_wire_plain(buf, mb_w, mb_h, spec)
+    n0 = dict(kernels.LAUNCHES)
+    got = unpack_wire_k12(buf, mb_w, mb_h, spec)
+    bm8 = sum(sch == "bm8" for _, sch, _ in spec)
+    assert kernels.LAUNCHES == {**n0, "unpack_wire": n0["unpack_wire"] + 1,
+                                "unpack_bm8": n0["unpack_bm8"] + bm8}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == torch.int32 and g.shape == w.shape, k
+        assert g.is_contiguous() or k == "wtab", k
+        assert torch.equal(g, w), k
+
+
+# (mb_w, mb_h): 1920x1080 and 3840x2160
+WIRE_GRIDS = [(120, 68), (240, 135)]
+
+
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("mb_w,mb_h", WIRE_GRIDS)
+@pytest.mark.parametrize("case", WIRE_CASES)
+def test_unpack_wire_kernel(dev, case, mb_w, mb_h, B):
+    """K12 on wire rounds forced to every scheme (intra zero/sparse/dense;
+    inter zero/base/base with sparse rows/dense; dense and dense16
+    coefficient classes beside bm8 ones; pcm zero/sparse/dense; wtab
+    zero/sparse), with padding rows and unsorted sparse rows."""
+    buf, spec = _wire_round(case, mb_w, mb_h, B, dev)
+    _check_unpack(buf, mb_w, mb_h, spec)
+
+
+def test_unpack_wire_refuses_bad_buffers(dev):
+    """A buffer K12 does not take raises, through the wrapper and through
+    ops/wire.py::unpack_wire, and launches nothing: no fallback to the
+    plain version on the card."""
+    buf, spec = _wire_round("sparse", 11, 9, 3, dev)
+    B, total = buf.shape
+    bad = {
+        TypeError: [buf.view(torch.int8)],
+        ValueError: [
+            buf[:, :total - 8],                                  # width
+            torch.zeros((B, total + 8), dtype=torch.uint8,
+                        device=dev)[:, 1:total + 1],             # address
+            torch.zeros((B, total + 2), dtype=torch.uint8,
+                        device=dev)[:, :total],                  # stride
+            torch.zeros((total, B), dtype=torch.uint8,
+                        device=dev).t(),                         # columns
+            torch.zeros((0, total), dtype=torch.uint8, device=dev)],
+    }
+    n0 = dict(kernels.LAUNCHES)
+    for err, bufs in bad.items():
+        for b in bufs:
+            for fn in (unpack_wire_k12, unpack_wire):
+                with pytest.raises(err):
+                    fn(b, 11, 9, spec)
+    assert kernels.LAUNCHES == n0
+    _check_unpack(buf, 11, 9, spec)
+    assert unpack_wire(buf, 11, 9, spec).keys() == \
+        unpack_wire_plain(buf, 11, 9, spec).keys()
+
+
 # frames of one MB kind, from one MB to 1080p
 ONE_KIND_GRIDS = [(1, 1), (1, 6), (6, 1), (7, 5), (120, 68)]
 
@@ -379,8 +457,9 @@ def test_wavefront_kernels(dev, order, mb_w, mb_h, B):
 
 def test_wavefront_kernels_launch_once(dev):
     """One call of each of K1, K2, K5, K6, K7, K9, K10 and K11 on each
-    of WAVEFRONT_GRIDS puts that kernel on the card once, and one call of
-    K8 its DEVICE_LAUNCHES kernels: one torch.profiler session over all the
+    of WAVEFRONT_GRIDS puts that kernel on the card once, one call of K8
+    its DEVICE_LAUNCHES kernels, and one of K12 its device_launches (one,
+    two with sparse rows): one torch.profiler session over all the
     calls counts as many device launches of each kernel as calls (a call
     that launched nothing would also fail test_wavefront_kernels).  One
     session, as in chip_smoke.py: on the card, sessions after the first
@@ -388,6 +467,7 @@ def test_wavefront_kernels_launch_once(dev):
     and a session after another lost the records of short kernels."""
     from torch.profiler import ProfilerActivity, profile
     calls = []
+    k12_calls = 0                  # K12's device launches over its calls
     for mb_w, mb_h, B in WAVEFRONT_GRIDS:
         a, res, init, tables = _random_inputs(mb_w, mb_h, B, mb_w + mb_h, dev)
         planes = tuple(p.to(torch.uint8) for p in init)
@@ -404,6 +484,14 @@ def test_wavefront_kernels_launch_once(dev):
         calls.append(("unpack_bm8", partial(
             unpack_bm8, *_bm8_case(16, B, max(1, grid // 2), grid, mb_h,
                                    dev), grid, 16)))
+        # K12 on a round with no bm8 class (K8 would launch beside it)
+        # and no sparse rows, and on one with sparse rows (two launches)
+        for case in ("dense", "dense32"):
+            buf, spec = _wire_round(case, mb_w, mb_h, B, dev)
+            assert all(sch != "bm8" for _, sch, _ in spec)
+            calls.append(("unpack_wire", partial(unpack_wire_k12, buf, mb_w,
+                                                 mb_h, spec)))
+            k12_calls += k12_launches(spec, mb_w * mb_h)
         calls.append(("residual", partial(
             residual_k9, _residual_abi(mb_w, mb_h, B, mb_w, dev), mb_w,
             mb_h, *_ws(dev), (1, -1), True)))
@@ -423,8 +511,11 @@ def test_wavefront_kernels_launch_once(dev):
             if e.device_type == torch.autograd.DeviceType.CUDA}
     for name in {n for n, _ in calls}:
         per_call = DEVICE_LAUNCHES if name == "unpack_bm8" else 1
+        want = k12_calls if name == "unpack_wire" else \
+            per_call * len(WAVEFRONT_GRIDS)
         assert sum(c for k, c in seen.items() if f"{name}_kernel" in k) \
-            == per_call * len(WAVEFRONT_GRIDS), (name, seen)
+            == want, (name, seen)
+    assert len(WAVEFRONT_GRIDS) < k12_calls < 4 * len(WAVEFRONT_GRIDS)
 
 
 # K9 (residual), K10 (inter_combine), K11 (store_refs)
@@ -848,9 +939,10 @@ def test_deblock_wrappers_refuse_unaligned(dev, fn):
 def test_decoder_cuda_smoke_stream(dev, order, path):
     """The smoke stream on the card: its golden MD5s; the order's kernels,
     K3/K4, K7 (deblock_tables), K8 (unpack_bm8), K9 (residual), K10
-    (inter_combine) and K11 (store_refs) launched and no other; K7 and K9
-    once a picture, K8 once a bm8 class of each picture's wire, K10 with
-    K3/K4, K11 once a reference picture's store."""
+    (inter_combine), K11 (store_refs) and K12 (unpack_wire) launched and
+    no other; K7, K9 and K12 once a picture, K8 once a bm8 class of each
+    picture's wire, K10 with K3/K4, K11 once a reference picture's
+    store."""
     from arrow_h264_tpu_torch.api import Decoder
     meta = json.loads(SMOKE.with_suffix(".json").read_text())
     kernels.reset_launches()
@@ -861,9 +953,10 @@ def test_decoder_cuda_smoke_stream(dev, order, path):
     assert md5 == meta["md5"]
     assert {k for k, v in kernels.LAUNCHES.items() if v} == \
         path | {"deblock_tables", "unpack_bm8", "residual", "inter_combine",
-                "store_refs"}, kernels.LAUNCHES
+                "store_refs", "unpack_wire"}, kernels.LAUNCHES
     assert tally["unpacks"] == kernels.LAUNCHES["deblock_tables"] == \
-        kernels.LAUNCHES["residual"] == len(md5)
+        kernels.LAUNCHES["residual"] == kernels.LAUNCHES["unpack_wire"] == \
+        len(md5)
     assert kernels.LAUNCHES["unpack_bm8"] == tally["bm8"]
     assert kernels.LAUNCHES["inter_combine"] == kernels.LAUNCHES["mc_luma"]
     assert kernels.LAUNCHES["store_refs"] == tally["stores"] > 0
@@ -888,7 +981,7 @@ def test_decoder_cuda_field_stream(dev, stream, order):
     assert tally["unpacks"] == fields
     assert kernels.LAUNCHES == want_launches(
         kernels.LAUNCHES, order, fields, fields - 2, tally["bm8"],
-        stores=tally["stores"])
+        stores=tally["stores"], unpacks=tally["unpacks"])
 
 
 @pytest.mark.parametrize("order", ORDERS)
@@ -911,7 +1004,8 @@ def test_batch_decoder_cuda(dev, order):
     assert tally["unpacks"] == bd.wire_rounds == bd.rounds
     assert launches == want_launches(launches, order, bd.rounds,
                                      bd.inter_rounds, tally["bm8"],
-                                     stores=tally["stores"])
+                                     stores=tally["stores"],
+                                     unpacks=tally["unpacks"])
     for p, data, frames in zip(QCIF_LANES, datas, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         ours = [f.planar() for f in frames]
@@ -954,7 +1048,8 @@ def test_decoder_cuda_feature_stream(dev, name, order):
     assert md5 == meta["md5"]
     assert kernels.LAUNCHES == want_launches(
         kernels.LAUNCHES, order, len(meta["structure"]),
-        meta["mc_pictures"], tally["bm8"], stores=tally["stores"])
+        meta["mc_pictures"], tally["bm8"], stores=tally["stores"],
+        unpacks=tally["unpacks"])
     if "concealed" in meta:
         assert [list(c) for c in dec.concealed] == meta["concealed"]
 
@@ -980,7 +1075,8 @@ def test_batch_decoder_cuda_features(dev, lanes, rounds, inter, order):
     assert tally["unpacks"] == bd.wire_rounds
     assert kernels.LAUNCHES == want_launches(kernels.LAUNCHES, order, rounds,
                                              inter, tally["bm8"],
-                                             stores=tally["stores"])
+                                             stores=tally["stores"],
+                                             unpacks=tally["unpacks"])
     for n, frames in zip(lanes, outs):
         meta = json.loads((SMOKE.parent / f"{n}.json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \
@@ -1074,7 +1170,7 @@ def test_batch_decoder_cuda_two_shards(dev, order):
     assert tally["unpacks"] == 2 * bd.rounds
     assert kernels.LAUNCHES == want_launches(
         kernels.LAUNCHES, order, bd.rounds, bd.inter_rounds, tally["bm8"],
-        shards=2, stores=tally["stores"])
+        shards=2, stores=tally["stores"], unpacks=tally["unpacks"])
     for p, frames in zip(QCIF_LANES, outs):
         meta = json.loads(p.with_suffix(".json").read_text())
         assert [hashlib.md5(f.planar()).hexdigest() for f in frames] \

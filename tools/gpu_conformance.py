@@ -18,10 +18,11 @@ then ALL BIT-EXACT or CONFORMANCE FAILURES.  On the card each decode
 must also have launched the order's intra and deblock kernels and the
 deblock-table kernel K7 and the residual kernel K9 once a picture (a
 BatchDecoder round), K3/K4 and the inter combine K10 once a P/B picture
-(a round with a P/B lane), the wire's bm8 kernel K8 once for each
-coefficient class that a wire upload shipped as bm8, and the reference
-store K11 once a store of reference pictures (a round with a storing
-lane; `bm8_tally` counts both).  Exit code 0 iff every frame is exact
+(a round with a P/B lane), the wire unpack K12 once a wire upload and
+the wire's bm8 kernel K8 once for each coefficient class that a wire
+upload shipped as bm8, and the reference store K11 once a store of
+reference pictures (a round with a storing lane; `bm8_tally` counts
+them).  Exit code 0 iff every frame is exact
 and every count as it must be.
 
 It needs only the committed streams and their JSON: no libx264 or
@@ -87,9 +88,10 @@ def rounds_of(names: list[str]) -> tuple[int, int, list[int]]:
 @contextlib.contextmanager
 def bm8_tally():
     """While open, count the wire uploads that models.pipeline unpacks
-    (`unpacks`) and the coefficient classes they ship as bm8 (`bm8`),
-    from the specs unpack_wire is given: the launches K8 (unpack_bm8)
-    must make (a dense upload unpacks nothing); and the reference stores
+    (`unpacks`: the launches K12, unpack_wire, must make) and the
+    coefficient classes they ship as bm8 (`bm8`), from the specs
+    unpack_wire is given: the launches K8 (unpack_bm8) must make (a dense
+    upload unpacks nothing); and the reference stores
     with a storing lane that the decoders ask store_refs_fn for
     (`stores`, where models.pipeline and parallel.sharding call it): the
     launches K11 (store_refs) must make.  Yields the counts."""
@@ -118,20 +120,21 @@ def bm8_tally():
 
 
 def want_launches(launches: dict, order: str, pictures: int, inter: int,
-                  bm8: int, shards: int = 1, *, stores: int) -> dict:
+                  bm8: int, shards: int = 1, *, stores: int,
+                  unpacks: int) -> dict:
     """The launches a decode of `pictures` pictures (BatchDecoder rounds),
     `inter` of them with a P/B picture, over `shards` shards must make:
     the order's intra and deblock kernels, K7 and K9 once a picture and
-    shard, K3/K4 and K10 once an inter one, K8 `bm8` times and K11
-    `stores` times (bm8_tally's counts); every other kernel of
-    `launches` none."""
+    shard, K3/K4 and K10 once an inter one, K8 `bm8` times, K11 `stores`
+    times and K12 `unpacks` times (bm8_tally's counts); every other
+    kernel of `launches` none."""
     want = dict.fromkeys(launches, 0)
     want.update(dict.fromkeys(KERNELS[order] + ("deblock_tables",
                                                 "residual"),
                               shards * pictures),
                 **dict.fromkeys(("mc_luma", "mc_chroma", "inter_combine"),
                                 shards * inter),
-                unpack_bm8=bm8, store_refs=stores)
+                unpack_bm8=bm8, store_refs=stores, unpack_wire=unpacks)
     return want
 
 
@@ -140,14 +143,15 @@ def check_counts(r: dict, names: list[str], order: str, batch: bool,
     """'' if the card's decode `r` (of `decode`) of `names` launched each
     kernel as it must, `launches` being the wrappers' counts over it: the
     order's intra and deblock kernels, K7 and K9 once a picture (a round),
-    K3/K4 and K10 once a P/B picture (a round with a P/B lane), K8 once a
-    bm8 class of each wire upload (r["bm8"]) and K11 once a store with a
-    storing lane (r["stores"], at least one), with a batch's every round
+    K3/K4 and K10 once a P/B picture (a round with a P/B lane), K12 once a
+    wire upload (r["unpacks"]), K8 once a bm8 class of each wire upload
+    (r["bm8"]) and K11 once a store with a storing lane (r["stores"], at
+    least one), with a batch's every round
     through `upload` and a stream's every picture through the wire or
     none; else what differs."""
     rounds, inter, _ = rounds_of(names)
     want = want_launches(launches, order, rounds, inter, r["bm8"],
-                         stores=r["stores"])
+                         stores=r["stores"], unpacks=r["unpacks"])
     dec = r["decoder"]
     if batch:
         want_seen = (rounds, inter,
