@@ -17,35 +17,50 @@
 // one.  The wire itself is a small part: it is ~10x smaller than the
 // output.
 //
-// What the design does about it: each thread writes kWordsPerThread
-// output words kThreads apart, and the words of a warp are consecutive,
-// so every store is coalesced.  The wrapper (ops/kernels/unpack_wire.py)
-// lays the work out as a table of segments, one an output key (or a
-// sparse section's rows of a key): the op that makes its words, its
-// rows, the words a row, the wire section it reads and where its first
-// block is.  A block finds its segment in the table (a kernel argument)
-// by the segments' first blocks, kept apart in 128 bytes that stay in
-// the constant cache, and a thread its row and word; the op reads the
-// row's bytes where they lie in the wire (lanes a row stride apart), so
-// nothing is copied first.  Launch 1 (`scatter` 0) writes every word from
-// the dense and base sections, zeros (or -1 refs) where a key is sparse;
-// launch 2 (`scatter` 1, only for a spec with sparse intra, inter or PCM
-// rows) writes each sparse row over its MB; an index outside the picture
-// (the bucket padding, index == n) is dropped.  The weight table's few
-// shipped rows are looked up in launch 1: a thread searches the lane's
-// wt_idx (at most 16 entries) for its row.
+// What the design does about it: wide stores, reads from shared memory
+// and no division.  The wrapper (ops/kernels/unpack_wire.py) lays the work out
+// as a table of segments, one an output key (or a sparse section's rows
+// of a key): the op that makes its words, its rows, the words a row, the
+// wire section it reads, where its first block is, and a multiplier and
+// shift that give a word's row without a division, and the words a
+// block makes (fewer where wide rows would overflow the staging buffer:
+// the 40-byte intra rows of a 4-word key).  A block finds its
+// segment in the table (a kernel argument) by the segments' first
+// blocks, kept apart in 128 bytes that stay in the constant cache.  It
+// stages the wire bytes of its rows (contiguous in the lane, row_bytes
+// apart) in shared memory: one pass of 16-byte cp.async over the aligned
+// superset of the span, and the lane's slice table where the op reads
+// it.  Then a thread makes kGroups groups of 4 consecutive output words
+// (neighbouring threads on neighbouring groups) from shared memory and
+// stores each as one int4; the groups are aligned to the output, so only
+// a segment's or a lane's unaligned head and tail (regions are 16-byte
+// aligned per key, lanes are not) go word by word.  Launch 1 (`scatter`
+// 0) writes every word from the dense and base sections, zeros (or -1
+// refs) where a key is sparse; launch 2 (`scatter` 1, only for a spec
+// with sparse intra, inter or PCM rows) writes each sparse row over its
+// MB, a group of 4 words a store (rows of a multiple of 4 words); an
+// index outside the picture (the bucket padding, index == n) is dropped.
+// The weight table's few shipped rows are looked up in launch 1: a thread
+// searches the lane's wt_idx (at most 16 entries) for its row and reads
+// the row where it lies in the wire (its rows are not contiguous).
 
 #include <cstdint>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWordsPerThread = 4;
-constexpr int kBlockWords = kThreads * kWordsPerThread;   // words a block
+constexpr int kGroups = 4;                     // int4 groups a thread
+constexpr int kBlockWords = kThreads * 4 * kGroups;   // words a block
 constexpr int kMaxSegs = 32;
-constexpr int kNxMask = 64 - 1;                  // ops/wire.py NX_FLAG - 1
+// a block's staged row bytes: kBlockWords rows of 6 bytes (the meta6
+// rows, a word each) and the 16-byte alignment around them; the wrapper
+// gives a block of a segment with wider rows fewer words
+constexpr int kStageBytes = 6 * kBlockWords + 32;
+constexpr int kTabBytes = 6 * 16 + 32;         // the slice table, aligned
+constexpr int kNxMask = 64 - 1;                // ops/wire.py NX_FLAG - 1
 
 // What a segment's words are (ops/kernels/unpack_wire.py OPS, in order).
 enum Op {
@@ -63,10 +78,13 @@ enum Op {
 // idx[r] (int32 at byte idx of the lane's wire) when that lies in
 // [0, lane_words / wpm); any other segment's word i to word i of the
 // lane.  kWtab reads idx (nidx entries) to find its row's source.  Its
-// lane's words start at element out + b * lane_words of the output.
+// lane's words start at element out + b * lane_words of the output.  A
+// word i < 2^31 lies in row (i * mul) >> shift.  A block makes
+// block_words of its words (kBlockWords, or fewer where the rows those
+// span would overflow the staging buffer: a multiple of 4).
 struct Seg {
   long long op, rows, wpm, block0, src, row_bytes, idx, nidx, lane_words,
-      out;
+      out, mul, shift, block_words;
 };
 
 struct UnpackArgs {
@@ -83,10 +101,53 @@ struct UnpackArgs {
   Seg seg[kMaxSegs];
 };
 
+// 16-byte copy global -> shared without holding registers (cp.async,
+// sm_80+); copy_wait_all closes this thread's group of copies and waits
+// for them.  Compiled for the host (a CPU build of the kernel for
+// debugging), plain copies.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// The 16-byte aligned superset of [src, src + nbytes) into dst (16-byte
+// aligned), by the block's threads; returns where src's first byte lands
+// in dst.  The granules around a span lie in its allocation (CUDA's are
+// 256-byte aligned, torch's rounded up to 512 bytes).
+__device__ __forceinline__ int stage(uint8_t* dst, const uint8_t* src,
+                                     int nbytes) {
+  const uintptr_t lo = (uintptr_t)src & ~(uintptr_t)15;
+  const int chunks =
+      (int)((((uintptr_t)src + nbytes + 15) & ~(uintptr_t)15) - lo) / 16;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+    copy_async16(dst + 16 * c, reinterpret_cast<const void*>(lo + 16 * c));
+  return (int)((uintptr_t)src - lo);
+}
+
+__device__ __forceinline__ int row_of(int i, unsigned long long mul,
+                                      int shift) {
+  return (int)(((unsigned long long)(unsigned)i * mul) >> shift);
+}
+
 __device__ __forceinline__ int i8(const uint8_t* p) {
   return (int)(int8_t)*p;
 }
 
+// Rows keep their alignment in shared memory (a span lands at its
+// offset in a 16-byte granule), so 2- and 4-byte values are read whole.
 __device__ __forceinline__ int i16(const uint8_t* p, int j) {
   return (int)reinterpret_cast<const int16_t*>(p)[j];
 }
@@ -139,46 +200,93 @@ __device__ __forceinline__ int word(int op, const uint8_t* row,
 // local memory).
 __global__ void __launch_bounds__(kThreads)
 unpack_wire_kernel(const __grid_constant__ UnpackArgs a, int scatter) {
+  __shared__ __align__(16) uint8_t s_rows[kStageBytes];
+  __shared__ __align__(16) uint8_t s_tab[kTabBytes];
   const int x = blockIdx.x, b = blockIdx.y;
   int s = 0;
   while (s + 1 < a.nseg && a.block0[s + 1] <= x) ++s;
   const Seg& g = a.seg[s];
   // a lane's words of one segment number fewer than 2^31 (the wrapper
   // checks), so the rows and words are int arithmetic
-  const int op = (int)g.op, wpm = (int)g.wpm, words = (int)g.rows * wpm;
-  const int nidx = (int)g.nidx, out_rows = (int)(g.lane_words / wpm);
-  const long long src = g.src, row_bytes = g.row_bytes;
+  const int op = (int)g.op, wpm = (int)g.wpm, words = (int)(g.rows * wpm);
+  const int row_bytes = (int)g.row_bytes, shift = (int)g.shift;
+  const int block_words = (int)g.block_words;
+  const unsigned long long mul = (unsigned long long)g.mul;
   const uint8_t* lane = a.buf + b * a.stride;
-  const uint8_t* tab = lane + a.slice8;
-  const int32_t* idx = reinterpret_cast<const int32_t*>(lane + g.idx);
   int32_t* out = a.out + g.out + b * g.lane_words;
-  const int first = (x - a.block0[s]) * kBlockWords + threadIdx.x;
-  for (int i = first; i < first + kBlockWords && i < words; i += kThreads) {
-    const int r = i / wpm, j = i % wpm;
-    if (op == kWtab) {
-      // the identity (weights 1, offsets 0) unless the lane ships row r
-      int k = 0;
-      while (k < nidx && idx[k] != r) ++k;
-      out[i] = k < nidx ? i16(lane + src + k * row_bytes, j) : (j & 1) == 0;
-      continue;
+  // the block's positions first + 4 k are 16-byte aligned in the output
+  // (launch 2's rows are: its segments start a region and hold rows of a
+  // multiple of 4 words); its words are [lo, hi)
+  const int first = (x - a.block0[s]) * block_words -
+                    (scatter ? 0 : (int)((g.out + b * g.lane_words) & 3));
+  const int lo = max(first, 0), hi = min(first + block_words, words);
+  if (lo >= hi) return;
+  const int r_lo = row_of(lo, mul, shift);
+  const uint8_t* rows = nullptr;       // row r_lo's bytes, staged
+  if (g.src >= 0 && op != kWtab) {
+    const int span = (row_of(hi - 1, mul, shift) - r_lo + 1) * row_bytes;
+    rows = s_rows + stage(s_rows, lane + g.src + (long long)r_lo * row_bytes,
+                          span);
+  }
+  const uint8_t* tab = nullptr;
+  if (op == kDisableIdc || op == kAlphaOff || op == kBetaOff)
+    tab = s_tab + stage(s_tab, lane + a.slice8, 6 * 16);
+  copy_wait_all();
+  __syncthreads();
+
+  const int32_t* idx = reinterpret_cast<const int32_t*>(lane + g.idx);
+  const int nidx = (int)g.nidx;
+  for (int k = 0; k < kGroups; ++k) {
+    const int at = 4 * (k * kThreads + threadIdx.x);
+    const int i0 = first + at;
+    if (at >= block_words || i0 + 3 < lo || i0 >= hi) continue;
+    const int i1 = max(i0, lo);
+    int r = row_of(i1, mul, shift), j = i1 - r * wpm;
+    const int r0 = r;
+    int v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i0 + u < lo || i0 + u >= hi) continue;
+      if (op == kWtab) {
+        // the identity (weights 1, offsets 0) unless the lane ships row r
+        int t = 0;
+        while (t < nidx && idx[t] != r) ++t;
+        v[u] = t < nidx ? i16(lane + g.src + (long long)t * row_bytes, j)
+                        : (j & 1) == 0;
+      } else {
+        v[u] = word(op, rows ? rows + (r - r_lo) * row_bytes : nullptr, tab,
+                    j);
+      }
+      if (++j == wpm) {
+        j = 0;
+        ++r;
+      }
     }
-    const uint8_t* row = src >= 0 ? lane + src + r * row_bytes : nullptr;
-    if (!scatter) {
-      out[i] = word(op, row, tab, j);
-      continue;
+    if (scatter) {
+      // the group is one row's words j0..j0 + 3; an index outside the
+      // picture (the bucket padding) is dropped
+      const int m = idx[r0], j0 = i0 - r0 * wpm;
+      if (m >= 0 && m < row_of((int)g.lane_words, mul, shift))
+        reinterpret_cast<int4*>(out + (long long)m * wpm + j0)[0] =
+            make_int4(v[0], v[1], v[2], v[3]);
+    } else if (i0 >= lo && i0 + 3 < hi) {
+      reinterpret_cast<int4*>(out + i0)[0] =
+          make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u >= lo && i0 + u < hi) out[i0 + u] = v[u];
     }
-    const int m = idx[r];
-    if (m >= 0 && m < out_rows)                     // else bucket padding
-      out[(long long)m * wpm + j] = word(op, row, tab, j);
   }
 }
 
 }  // namespace
 
-// segs: nseg rows of the 10 int64 fields of Seg, launch 1's segments
+// segs: nseg rows of the 13 int64 fields of Seg, launch 1's segments
 // then launch 2's (n1 and nseg - n1 of them), each group ordered by
 // block0; blocks1 and blocks2 the launches' blocks a lane.  A host array:
-// the table travels as a kernel argument.
+// the table travels as a kernel argument.  The output allocation must be
+// 16-byte aligned.
 extern "C" int unpack_wire_launch(
     const uint8_t* buf, int32_t* out, const long long* segs, int nseg,
     int n1, int blocks1, int blocks2, int B, int stride, int slice8,
@@ -198,9 +306,9 @@ extern "C" int unpack_wire_launch(
     if (count == 0 || blocks == 0) continue;
     a.nseg = count;
     for (int k = 0; k < count; ++k) {
-      const long long* f = segs + 10 * (first + k);
+      const long long* f = segs + 13 * (first + k);
       a.seg[k] = Seg{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
-                     f[9]};
+                     f[9], f[10], f[11], f[12]};
       a.block0[k] = (int)f[3];
     }
     unpack_wire_kernel<<<dim3(blocks, B), kThreads, 0, st>>>(a, pass);

@@ -3,11 +3,13 @@
 Replaces no pallas_call: the reference computes the tables in XLA
 (arrow_h264_tpu/ops/deblock.py::deblock_tables), fused into its one
 jitted decode.  The plain version is ops/deblock.py::deblock_tables,
-about 450 eager torch launches a call; the kernel is one launch, a thread
-per (MB, direction), with the four constant tables of common/tables.py
+about 450 eager torch launches a call; the kernel is one launch, a block
+a strip of 32 MBs of one lane staged in shared memory, a thread an (MB,
+direction, edge), with the four constant tables of common/tables.py
 passed in as device tensors.  The result has the plain version's keys,
 shapes and int32 values, each table a 16-byte aligned view of one
-allocation, as the deblock kernels K2/K6 take them.
+allocation (the kernel stores 16 bytes at a time), as the deblock
+kernels K2/K6 take them.
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@ writes every key but the bm8 coefficient classes, which K8
 `plan` lays K12's work out as a table of segments, one an output key (and
 one for each key's sparse rows): the op of csrc/unpack_wire.cu that
 makes its words, its rows and words a row, the wire section it reads, its
-first block, and where its words go in the one int32 allocation that
-holds every output.  The kernel reads the sections where they lie in the
-[B, total] wire (a lane's row stride apart), so the wrapper copies
-nothing, and writes each output word once (launch 1) but the words of
-MBs that a sparse row covers, written again by launch 2.
+first block, where its words go in the one int32 allocation that holds
+every output, and the multiplier and shift that give a word's row
+without a division.  A block of the kernel stages the rows it reads
+from the [B, total] wire (a lane's row stride apart) in shared memory,
+so the wrapper copies nothing, and writes each output word once (launch
+1) but the words of MBs that a sparse row covers, written again by
+launch 2, 4 words a store.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ OPS = ("kind", "qp", "slice_id", "tr8", "mb_avail", "i16_mode",
 OP = {name: code for code, name in enumerate(OPS)}
 # csrc/unpack_wire.cu's Seg, field by field (int64 each)
 FIELDS = ("op", "rows", "wpm", "block0", "src", "row_bytes", "idx", "nidx",
-          "lane_words", "out")
-BLOCK_WORDS = 256 * 4      # csrc/unpack_wire.cu kBlockWords: kThreads x
-                           # kWordsPerThread, the output words of a block
+          "lane_words", "out", "mul", "shift", "block_words")
+BLOCK_WORDS = 256 * 4 * 4  # csrc/unpack_wire.cu kBlockWords: kThreads x 4
+                           # x kGroups, the output words of a block
+STAGE_BYTES = 6 * BLOCK_WORDS + 32   # csrc/unpack_wire.cu kStageBytes
 MAX_SEGS = 32              # csrc/unpack_wire.cu kMaxSegs, a launch
 
 # (key and op, words an MB) of the fields made from an MB's meta6 row
@@ -59,6 +62,29 @@ _INTRA = (("i4_modes", (16,)), ("i4_avail", (16, 4)), ("i8_modes", (4,)),
 # ref, of mv_base/ref_base, nu_mv/nu_ref or mv16/ref8)
 _INTER = (("mv", (4, 4, 2, 2), "mv"), ("refidx", (4, 4, 2), "ref"),
           ("refid", (4, 4, 2), "ref"), ("refslot", (4, 4, 2), "ref"))
+
+
+def row_divisor(wpm: int) -> tuple[int, int]:
+    """(mul, shift) with (i * mul) >> shift == i // wpm for every
+    0 <= i < 2**31 (Granlund and Montgomery's round-up method)."""
+    shift = 31 + (wpm - 1).bit_length()
+    return -(-(1 << shift) // wpm), shift
+
+
+def block_words(op: str, wpm: int, src: int, row_bytes: int) -> int:
+    """The words a block of the kernel makes of a segment: BLOCK_WORDS, or
+    fewer (a multiple of 4) where the most rows that many words touch
+    would not fit the block's staging buffer with the 30 bytes of its
+    16-byte alignment (the weight table's rows are read in place)."""
+    if src < 0 or op == "wtab":
+        return BLOCK_WORDS
+    fit = (STAGE_BYTES - 30) // row_bytes          # rows a block stages
+    # n words touch at most (n + wpm - 2) // wpm + 1 rows
+    bw = min(BLOCK_WORDS, ((fit - 1) * wpm + 1) // 4 * 4)
+    if bw < 4:
+        raise ValueError(f"unpack_wire: rows of {row_bytes} bytes overflow "
+                         "a block's staging buffer")
+    return bw
 
 
 class Plan(NamedTuple):
@@ -110,7 +136,8 @@ def plan(spec, n: int, B: int) -> Plan:
         for launch, op, rows, wpm, src, row_bytes, *idx in parts:
             idx, nidx = idx or (-1, 0)
             segs[launch].append([OP[op], rows, wpm, 0, src, row_bytes, idx,
-                                 nidx, lane_words, words])
+                                 nidx, lane_words, words, *row_divisor(wpm),
+                                 block_words(op, wpm, src, row_bytes)])
         words += -(-B * lane_words // 4) * 4    # 16-byte aligned regions
 
     for name, wpm in _META:
@@ -118,7 +145,7 @@ def plan(spec, n: int, B: int) -> Plan:
                                                   *sec("meta6")))
     # the slice table as one row
     key("slogwd", (MAX_SLICES, 2),
-        (0, "slogwd", 1, 2 * MAX_SLICES, sec("slice8")[0], 0))
+        (0, "slogwd", 1, 2 * MAX_SLICES, sec("slice8")[0], 6 * MAX_SLICES))
     key("nz", (n, 4, 4), (0, "nz", n, 16, *sec("meta6")))
 
     sch, b = sd["intra"]
@@ -172,17 +199,24 @@ def plan(spec, n: int, B: int) -> Plan:
              sec("wt_idx")[0], b))
 
     blocks = []
-    for group in segs:
+    for launch, group in enumerate(segs):
         if len(group) > MAX_SEGS:
             raise ValueError(f"unpack_wire: {len(group)} segments in a "
                              f"launch, at most {MAX_SEGS}")
         block0 = 0
         for s in group:
-            if s[1] * s[2] >= 2**31:
-                raise ValueError(f"unpack_wire: {s[1]} x {s[2]} words in "
+            _, rows, wpm, _, _, _, _, _, lane_words, *_, bw = s
+            if max(rows * wpm, lane_words) >= 2**31:
+                raise ValueError(f"unpack_wire: {rows} x {wpm} words in "
                                  "a lane's segment")
+            if launch and wpm % 4:
+                raise ValueError(f"unpack_wire: sparse rows of {wpm} words,"
+                                 " not a multiple of 4")
             s[3] = block0
-            block0 += -(-s[1] * s[2] // BLOCK_WORDS)
+            # launch 1's blocks start 0-3 words before the segment, where
+            # its lane's words are not 16-byte aligned
+            pad = 3 if not launch and lane_words % 4 else 0
+            block0 += -(-(rows * wpm + pad) // bw)
         blocks.append(block0)
     n1 = len(segs[0])
     segs = np.array(segs[0] + segs[1], np.int64).reshape(-1, len(FIELDS))

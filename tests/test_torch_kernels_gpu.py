@@ -255,6 +255,43 @@ def test_deblock_tables_kernel(dev, source, mb_w, mb_h, B, field):
         assert torch.equal(got[k], w), k
 
 
+# (mb_w, mb_h, B): lanes that start off a 16-byte boundary (n = 99, 66)
+# with a ragged last strip of K7's 32 MBs, strips that end mid-row, and
+# 3840x2160 at B = 4 (past the L2)
+TABLE_STRIPS = [(11, 9, 3), (33, 2, 3), (240, 135, 4)]
+
+
+@pytest.mark.parametrize("field", [False, True], ids=["frame", "field"])
+@pytest.mark.parametrize("mb_w,mb_h,B", TABLE_STRIPS)
+@pytest.mark.parametrize("source", ["synthetic_p", "random"])
+def test_deblock_tables_strips(dev, source, mb_w, mb_h, B, field):
+    """K7 where its strips and lanes are not aligned, and at 4K B = 4:
+    the twelve tables torch.equal to the plain deblock_tables."""
+    a = _table_abi(source, mb_w, mb_h, B, mb_w + 7 * B, dev)
+    want = deblock_tables(a, mb_w, mb_h, (-2, 3), field)
+    got = deblock_tables_k7(a, mb_w, mb_h, (-2, 3), field)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+
+
+@pytest.mark.parametrize("mb_w,mb_h,B", [(11, 9, 3), (120, 68, 1)])
+def test_deblock_tables_unaligned_abi(dev, mb_w, mb_h, B):
+    """ABI fields whose storage starts 4 bytes past a 16-byte boundary:
+    K7 stages them a word at a time, with the same tables."""
+    a = _table_abi("random", mb_w, mb_h, B, 5, dev)
+    off = {}
+    for k, t in a.items():
+        flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+        at = (-(flat.data_ptr() // 4) + 1) % 4
+        off[k] = flat[at:at + t.numel()].view(t.shape)
+        off[k].copy_(t)
+        assert off[k].data_ptr() % 16 == 4
+    want = deblock_tables(a, mb_w, mb_h)
+    got = deblock_tables_k7(off, mb_w, mb_h)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+
+
 def _bm8_case(w, B, br, grid, seed, dev, strided=False):
     """B lanes of one bm8 class on the card, as the wire ships them: each
     lane's real rows (a different count a lane) at sorted unique dense
@@ -346,6 +383,17 @@ def test_unpack_wire_kernel(dev, case, mb_w, mb_h, B):
     inter zero/base/base with sparse rows/dense; dense and dense16
     coefficient classes beside bm8 ones; pcm zero/sparse/dense; wtab
     zero/sparse), with padding rows and unsorted sparse rows."""
+    buf, spec = _wire_round(case, mb_w, mb_h, B, dev)
+    _check_unpack(buf, mb_w, mb_h, spec)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", [(11, 9), (7, 5)])
+@pytest.mark.parametrize("case", WIRE_CASES)
+def test_unpack_wire_kernel_unaligned(dev, case, mb_w, mb_h, B):
+    """K12 where a lane's words of a one-word key start off a 16-byte
+    boundary (n = 99 and 35 at B = 3) and segments end off it: their
+    heads and tails are stored word by word, every key torch.equal."""
     buf, spec = _wire_round(case, mb_w, mb_h, B, dev)
     _check_unpack(buf, mb_w, mb_h, spec)
 

@@ -2,11 +2,17 @@
 
 `thread_program` is a numpy model of the kernel's two launches over the
 segment table that the wrapper's `plan` builds: each block finds its
-segment by the kernel's loop, each thread its rows and words, and the
-op's word is read from the wire bytes where they lie, with the op codes,
-kThreads, kWordsPerThread and kMaxSegs parsed from the .cu.  Launch 1
-must write every word of every output once; launch 2 writes the sparse
-rows over their MBs.
+segment by the kernel's loop and its block_words words (from 0-3 words
+before the segment where its lane's words are not 16-byte aligned),
+stages the
+span of its rows (which must fit kStageBytes), and each thread makes
+kGroups groups of 4 words, each word's row from the segment's multiplier
+and shift, read only from its block's staged rows (or the slice table),
+and stores a group as one 16-byte aligned int4 or, at an unaligned head
+or tail, word by word; the op codes, kThreads, kGroups, kMaxSegs and
+kStageBytes are parsed from the .cu.  Launch 1 must write every word of
+every output once; launch 2 writes the sparse rows over their MBs, a
+group of one row a store.
 The model must equal the port's plain ops/wire.py::unpack_wire_plain and
 the JAX package's unpack_fn(mb_w, mb_h, spec, batched=True) key by key,
 on wire rounds made from numpy seeds through pack_wire_raw, merge_specs
@@ -34,10 +40,11 @@ from arrow_h264_tpu_torch.ops.synthetic import WIRE_CASES, forced_wire_round
 
 CU = (Path(wire.__file__).resolve().parents[1] / "csrc" /
       "unpack_wire.cu").read_text()
-THREADS, WORDS_PER_THREAD, MAX_SEGS = (
+THREADS, GROUPS, MAX_SEGS = (
     int(re.search(rf"constexpr int {k} = (\d+);", CU)[1])
-    for k in ("kThreads", "kWordsPerThread", "kMaxSegs"))
-BLOCK_WORDS = THREADS * WORDS_PER_THREAD
+    for k in ("kThreads", "kGroups", "kMaxSegs"))
+BLOCK_WORDS = THREADS * 4 * GROUPS
+STAGE_BYTES = 6 * BLOCK_WORDS + 32
 # the .cu's `enum Op`: name (kCamelCase) -> code
 ENUM = {m[1]: int(m[2]) for m in re.finditer(
     r"\b(k[A-Z]\w*) = (\d+)", CU[CU.index("enum Op"):CU.index("};",
@@ -53,8 +60,10 @@ def _code(name: str) -> int:
 
 
 def test_constants_match_the_kernel():
-    assert (BLOCK_WORDS, MAX_SEGS) == (k12.BLOCK_WORDS, k12.MAX_SEGS)
-    assert "constexpr int kBlockWords = kThreads * kWordsPerThread;" in CU
+    assert (BLOCK_WORDS, MAX_SEGS, STAGE_BYTES) == (
+        k12.BLOCK_WORDS, k12.MAX_SEGS, k12.STAGE_BYTES)
+    assert "constexpr int kBlockWords = kThreads * 4 * kGroups;" in CU
+    assert "constexpr int kStageBytes = 6 * kBlockWords + 32;" in CU
     assert len(ENUM) == len(k12.OPS)
     assert [_code(name) for name in k12.OPS] == list(range(len(k12.OPS)))
     seg = CU[CU.index("struct Seg {"):CU.index("};", CU.index("struct Seg"))]
@@ -66,23 +75,39 @@ def test_constants_match_the_kernel():
 
 class Lane:
     """A lane's wire bytes, read as the kernel reads them (little-endian,
-    vectorised over byte offsets)."""
+    vectorised over byte offsets).  With `staged` (per word: the first
+    and end byte of its block's staged rows) and `tab` (the slice table's
+    offset, where the op reads it), every read must lie in one of them,
+    as the kernel's reads of shared memory do."""
 
-    def __init__(self, row: np.ndarray):
+    def __init__(self, row: np.ndarray, staged=None, tab=None):
         self.b = row
+        self.staged = staged
+        self.tab = tab
+
+    def _at(self, off, size):
+        if self.staged is not None:
+            lo, hi = self.staged
+            ok = (off >= lo) & (off + size <= hi)
+            if self.tab is not None:
+                ok |= (off >= self.tab) & (off + size <= self.tab + 96)
+            assert ok.all(), "a read outside the block's staged bytes"
+        return off
 
     def u8(self, off):
-        return self.b[off].astype(np.int64)
+        return self.b[self._at(off, 1)].astype(np.int64)
 
     def i8(self, off):
-        return self.b[off].view(np.int8).astype(np.int64)
+        return self.b[self._at(off, 1)].view(np.int8).astype(np.int64)
 
     def i16(self, off):
+        off = self._at(off, 2)
         v = self.b[off].astype(np.int64) | (self.b[off + 1].astype(np.int64)
                                              << 8)
         return np.where(v >= 1 << 15, v - (1 << 16), v)
 
     def i32(self, off):
+        off = self._at(off, 4)
         v = sum(self.b[off + k].astype(np.int64) << (8 * k) for k in range(4))
         return np.where(v >= 1 << 31, v - (1 << 32), v)
 
@@ -144,9 +169,11 @@ def word(op: int, lane: Lane, row, tab: int, j):
     raise AssertionError(f"op {op}")
 
 
-def thread_program(buf: np.ndarray, mb_w: int, mb_h: int, spec) -> dict:
+def thread_program(buf: np.ndarray, mb_w: int, mb_h: int, spec,
+                   log: dict | None = None) -> dict:
     """K12's two launches over the plan's segments, on numpy buffers
-    [B, total] uint8 -> {key: [B, ...] int32} of K12's outputs."""
+    [B, total] uint8 -> {key: [B, ...] int32} of K12's outputs.  log (if
+    given) counts the int4 and the word stores."""
     n = mb_w * mb_h
     B = buf.shape[0]
     p = k12.plan(spec, n, B)
@@ -155,6 +182,8 @@ def thread_program(buf: np.ndarray, mb_w: int, mb_h: int, spec) -> dict:
     F = {f: i for i, f in enumerate(k12.FIELDS)}
     out = np.zeros(p.words, np.int64)
     written = np.zeros(p.words, np.int64)
+    log = {"int4": 0, "word": 0} if log is None else log
+    reads_tab = {_code(k) for k in ("disable_idc", "alpha_off", "beta_off")}
     for launch, segs, blocks in ((0, p.segs[:p.n1], p.blocks1),
                                  (1, p.segs[p.n1:], p.blocks2)):
         assert len(segs) <= MAX_SEGS
@@ -171,36 +200,80 @@ def thread_program(buf: np.ndarray, mb_w: int, mb_h: int, spec) -> dict:
         for k, g in enumerate(segs):
             g = dict(zip(k12.FIELDS, (int(v) for v in g)))
             xs = x[s == k]
-            # thread t of a block: words first + u * kThreads, u <
-            # kWordsPerThread, first = (x - block0) * kBlockWords + t
-            i = ((xs - g["block0"])[:, None, None] * BLOCK_WORDS +
-                 np.arange(WORDS_PER_THREAD)[None, :, None] * THREADS +
-                 np.arange(THREADS)[None, None, :]).ravel()
-            i = i[i < g["rows"] * g["wpm"]]
-            assert np.array_equal(np.sort(i), np.arange(
-                g["rows"] * g["wpm"]))                 # each word once
-            r, j = i // g["wpm"], i % g["wpm"]
+            wpm, words = g["wpm"], g["rows"] * g["wpm"]
+            mul, shift = np.uint64(g["mul"]), np.uint64(g["shift"])
+
+            def row_of(i):
+                return (np.asarray(i).astype(np.uint64) * mul >> shift) \
+                    .astype(np.int64)
+            assert np.array_equal(row_of(np.arange(words)),
+                                  np.arange(words) // wpm)
             for b in range(B):
-                lane = Lane(buf[b])
                 base = g["out"] + b * g["lane_words"]
+                # the blocks' first positions, 16-byte aligned in the
+                # output, and their words [lo, hi)
+                bw = g["block_words"]
+                assert bw % 4 == 0 and 0 < bw <= BLOCK_WORDS
+                first = (xs - g["block0"]) * bw - (
+                    0 if launch else base % 4)
+                lo = np.maximum(first, 0)
+                hi = np.minimum(first + bw, words)
+                assert (lo < hi).any() or not words
+                r_lo, r_hi = row_of(lo), row_of(np.maximum(hi - 1, 0))
+                staged = None
+                if g["src"] >= 0 and g["op"] != _code("wtab"):
+                    span_lo = g["src"] + r_lo * g["row_bytes"]
+                    span_hi = g["src"] + (r_hi + 1) * g["row_bytes"]
+                    addr = buf.ctypes.data + b * buf.strides[0]
+                    live = lo < hi
+                    assert ((((addr + span_hi + 15) & ~15) -
+                             ((addr + span_lo) & ~15))[live] <=
+                            STAGE_BYTES).all()
+                    staged = (span_lo, span_hi)
+                # thread t's group q: words i0 .. i0 + 3 of its block
+                at = 4 * np.arange(GROUPS * THREADS)
+                i0 = first[:, None] + at
+                i = i0[..., None] + np.arange(4)            # [X, G T, 4]
+                valid = (i >= lo[:, None, None]) & (i < hi[:, None, None]) \
+                    & (at < bw)[None, :, None]
+                blk = np.broadcast_to(np.arange(len(xs))[:, None, None],
+                                      i.shape)[valid]
+                i, grp = i[valid], np.broadcast_to(i0[..., None],
+                                                   valid.shape)[valid]
+                if not launch:
+                    assert np.array_equal(np.sort(i), np.arange(words))
+                r, j = row_of(i), i - row_of(i) * wpm
+                lane = Lane(buf[b], staged and (staged[0][blk],
+                                                 staged[1][blk]),
+                            tab if g["op"] in reads_tab else None)
                 if g["op"] == _code("wtab"):
                     idx = lane.i32(g["idx"] + 4 * np.arange(g["nidx"]))
                     hit = idx[None, :] == r[:, None]
-                    first = np.where(hit.any(1), hit.argmax(1), -1)
-                    v = np.where(first >= 0, lane.i16(
-                        g["src"] + np.maximum(first, 0) * g["row_bytes"] +
+                    at = np.where(hit.any(1), hit.argmax(1), -1)
+                    v = np.where(at >= 0, lane.i16(
+                        g["src"] + np.maximum(at, 0) * g["row_bytes"] +
                         2 * j), (j & 1) == 0)
-                    dst = base + i
                 else:
                     row = None if g["src"] < 0 else \
                         g["src"] + r * g["row_bytes"]
                     v = word(g["op"], lane, row, tab, j)
-                    dst = base + i
-                    if launch:
-                        m = lane.i32(g["idx"] + 4 * r)
-                        keep = (m >= 0) & (m < g["lane_words"] // g["wpm"])
-                        dst = (base + m * g["wpm"] + j)[keep]
-                        v = v[keep]
+                full = valid.all(-1)
+                dst = base + i
+                if launch:
+                    # a group is one row's words j0 .. j0 + 3
+                    assert full[valid.any(-1)].all()
+                    r0 = row_of(grp)
+                    assert np.array_equal(r, r0)
+                    m = Lane(buf[b]).i32(g["idx"] + 4 * r)   # in place
+                    keep = (m >= 0) & (m < g["lane_words"] // wpm)
+                    dst = (base + m * wpm + j)[keep]
+                    v = v[keep]
+                    assert (dst[::4] % 4 == 0).all()        # int4 stores
+                    log["int4"] += len(dst) // 4
+                else:
+                    assert ((base + i0[full]) % 4 == 0).all()
+                    log["int4"] += int(full.sum())
+                    log["word"] += int(valid[~full].sum())
                 out[dst] = v
                 written[dst] += 1
     got = {}
@@ -366,3 +439,54 @@ def test_plan_layout():
                      for f, s, b in spec if f in ("intra", "inter", "pcm"))
         assert (p.blocks2 > 0) == sparse == (k12.device_launches(spec, 99)
                                              == 2), case
+
+
+@pytest.mark.parametrize("wpm", [1, 2, 3, 4, 16, 32, 40, 64, 384, 13068])
+def test_row_divisor(wpm):
+    """The plan's multiplier and shift give i // wpm for every i < 2^31:
+    checked at each multiple of wpm near the ends and in between, one
+    word either side, and at random words."""
+    mul, shift = k12.row_divisor(wpm)
+    rng = np.random.default_rng(wpm)
+    q = np.concatenate([np.arange(4096), (2**31 - 1) // wpm - np.arange(
+        4096), rng.integers(0, (2**31 - 1) // wpm, 4096)])
+    i = np.concatenate([q * wpm - 1, q * wpm, q * wpm + 1,
+                        rng.integers(0, 2**31, 4096)])
+    i = i[(i >= 0) & (i < 2**31)].astype(np.uint64)
+    got = (i * np.uint64(mul)) >> np.uint64(shift)
+    assert np.array_equal(got, i // np.uint64(wpm))
+    assert mul < 2**33                        # i * mul < 2^64
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", [(11, 9), (7, 5)])
+@pytest.mark.parametrize("case", ["sparse", "dense"])
+def test_heads_and_tails(case, mb_w, mb_h, B):
+    """n = 99 and 35 MBs: the one-word keys' segments end off a 16-byte
+    boundary, and at B = 3 the lanes start off it too; those words are
+    stored one by one, every other group as one int4."""
+    buf, spec = _lanes(case, mb_w, mb_h, B, seed=13)
+    log = {"int4": 0, "word": 0}
+    got = thread_program(buf, mb_w, mb_h, spec, log)
+    want = _plain(buf, mb_w, mb_h, spec)
+    for k, v in got.items():
+        assert np.array_equal(v, want[k].numpy()), k
+    assert 0 < log["word"] < 4 * log["int4"]
+
+
+def test_block_words_of_wide_rows():
+    """At 1920x1088 the 40-byte intra rows of i8_modes (4 words) would
+    overflow a block's staging buffer at BLOCK_WORDS words: its blocks
+    make fewer, so that the rows they touch fit; the rest make
+    BLOCK_WORDS."""
+    _, spec = _lanes("dense", 120, 68, 1, seed=1)
+    p = k12.plan(spec, 120 * 68, 1)
+    F = {f: i for i, f in enumerate(k12.FIELDS)}
+    short = {k12.OPS[g[F["op"]]] for g in p.segs
+             if g[F["block_words"]] < BLOCK_WORDS}
+    assert short == {"i8_modes"}
+    for g in p.segs:
+        if g[F["src"]] >= 0 and k12.OPS[g[F["op"]]] != "wtab":
+            bw, wpm = g[F["block_words"]], g[F["wpm"]]
+            rows = (bw + wpm - 2) // wpm + 1
+            assert rows * g[F["row_bytes"]] + 30 <= STAGE_BYTES
