@@ -17,15 +17,24 @@
 // operations a 4x4 block.
 //
 // What the design does about it: one block takes a strip of kStrip MBs of
-// one MB row, a warp an MB.  In the warp, lanes 0-15 each take one luma
-// 4x4 block (dequant, the I16 DC Hadamard entry of its block, IDCT) and
-// lanes 16-23 one chroma 4x4 block (dequant, its entry of the 2x2 DC
-// transform, IDCT); an 8x8-transform MB runs its four 8x8 blocks on all
-// 32 lanes, a row of one block each, then a column.  Results stay in
-// shared memory for the bypass DPCM scans (a lane a column or row of the
-// MB) and I_PCM; then the block writes its strip row by row, each output
-// word once, coalesced along the plane's rows.
-//
+// one MB row, a warp an MB.  A warp first stages its MB's classes into
+// shared memory with coalesced 16-byte cp.async (luma4 or luma8 by tr8,
+// luma_dc of an I16 MB, chroma_dc and chroma_ac; an I_PCM MB's 384
+// samples straight into its result tiles); a class whose base is not
+// 16-byte aligned (bit clear in `vec`) is copied a word at a time.  The
+// staged 16-byte pieces of a 4x4 block or an 8x8 row sit in a swizzled
+// order, so that the lanes' 16-byte reads are free of bank conflicts.
+// Lanes 0-15 each take one luma 4x4 block and lanes 16-23 one chroma 4x4
+// block in one pass (dequant with the LevelScale row read as int4s and
+// without a branch, IDCT; the I16 DC Hadamard entry of a luma block, the
+// 2x2 DC entry of a chroma one); an 8x8-transform MB runs its four 8x8
+// blocks on all 32 lanes, a row of one block each, then a column.
+// Results stay in shared memory for the bypass DPCM scans (a lane a
+// column or row of the MB); then the block writes its strip as int4
+// groups, each output word once: a full strip's row is 128 luma or 64
+// chroma words, indexed by shifts and masks, and the columns past a
+// ragged last strip are masked.
+
 // The plain version's rules that this reproduces word for word:
 // - a coefficient class absent from the ABI (a null pointer here) reads
 //   as zero; the 4x4 path runs whenever luma4 or luma_dc is present, on
@@ -40,6 +49,7 @@
 //   the 8x8 chroma MB, but not for I_PCM); I_PCM overrides all.
 
 #include <cstdint>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
@@ -47,7 +57,29 @@ namespace {
 
 constexpr int kStrip = 8;              // MBs a block, a warp each
 constexpr int kThreads = 32 * kStrip;
+constexpr int kYGroups = 4 * kStrip;   // int4 groups of a full strip's row
+constexpr int kCGroups = 2 * kStrip;   // luma and chroma
+static_assert((kStrip & (kStrip - 1)) == 0, "kStrip: a power of two");
 constexpr int kI4x4 = 0, kI8x8 = 1, kI16 = 2, kIPcm = 3;
+// A warp's staging buffer, in words: luma4 (16 blocks of 16) or luma8
+// (32 rows of 8), luma_dc, chroma_dc, chroma_ac (8 blocks of 16).  A
+// quarter warp's eight 16-byte reads are free of bank conflicts when
+// they start 4 banks apart: piece p of 4x4 block q lies at piece
+// p ^ swz4(q), half h of 8x8 row r at half h ^ swz8(r).
+constexpr int kLumaDc = 256, kChromaDc = kLumaDc + 16;
+constexpr int kChromaAc = kChromaDc + 8;
+constexpr int kStage = kChromaAc + 128;
+// results: kYPitch words an MB's luma (16x16 raster) and kCPitch a
+// chroma plane (8x8), so that the write-out's reads are conflict-free
+constexpr int kYPitch = 16 * 16 + 16;
+constexpr int kCPitch = 8 * 8 + 4;
+// bits of the launch's `vec`: the class's base is 16-byte aligned
+// (ops/kernels/residual.py CLASS_SHAPES order)
+constexpr int kVecLuma4 = 1, kVecLuma8 = 2, kVecLumaDc = 4;
+constexpr int kVecChromaDc = 8, kVecChromaAc = 16, kVecPcm = 32;
+
+__device__ __forceinline__ int swz4(int q) { return (q >> 1) & 3; }
+__device__ __forceinline__ int swz8(int r) { return (r >> 2) & 1; }
 
 struct ResidualArgs {
   const int32_t* kind;                 // [B, n]
@@ -69,20 +101,79 @@ struct ResidualArgs {
   int32_t* res_y;                      // [B, H, W]
   int32_t* res_cb;                     // [B, H/2, W/2]
   int32_t* res_cr;
-  int B, mb_w, mb_h, cqp0, cqp1, bypass;
+  int B, mb_w, mb_h, cqp0, cqp1, bypass, vec;
 };
+
+// 4- or 16-byte copy global -> shared without holding registers
+// (cp.async, sm_80+); copy_wait_all closes this thread's group of copies
+// and waits for them.  Compiled for the host (a CPU build of the kernel
+// for debugging), plain copies.
+template <int N>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+#else
+  memcpy(dst, src, N);
+#endif
+}
+
+__device__ __forceinline__ void copy_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// 16 bytes global -> shared: one copy where `vec` (the class's base is
+// 16-byte aligned; every MB's offset is a multiple of 32 bytes), else
+// four of a word.
+__device__ __forceinline__ void copy16(int* dst, const int32_t* src,
+                                       bool vec) {
+  if (vec) {
+    copy_async<16>(dst, src);
+    return;
+  }
+  for (int k = 0; k < 4; ++k) copy_async<4>(dst + k, src + k);
+}
+
+__device__ __forceinline__ int4 ld4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+
+__device__ __forceinline__ void st4(int* p, const int* v) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
 
 // x << s in two's complement, as torch's int32 shift
 __device__ __forceinline__ int shl(int x, int s) {
   return (int)((unsigned)x << s);
 }
 
-// spec 8.5.12.1 (ops/transforms.py::dequant4x4_dev)
-__device__ __forceinline__ int dequant4(int c, int ls, int qp) {
-  const int q6 = qp / 6;
-  return qp >= 24 ? shl(c * ls, q6 - 4)
-                  : (c * ls + (1 << (3 - q6))) >> (4 - q6);
-}
+// spec 8.5.12.1 (ops/transforms.py::dequant4x4_dev) at QP' qp, without
+// a branch: c * ls << (qp/6 - 4) from qp 24 on, else
+// (c * ls + 2^(3 - qp/6)) >> (4 - qp/6).  It holds the shifts and the
+// rounding of one qp, so that a coefficient costs a multiply, a shift and
+// an add.
+struct Dequant4 {
+  int lsh, rnd, rsh;
+  __device__ __forceinline__ explicit Dequant4(int qp) {
+    const int q6 = qp / 6;
+    lsh = max(q6 - 4, 0);
+    rsh = max(4 - q6, 0);
+    rnd = rsh ? 1 << (rsh - 1) : 0;
+  }
+  __device__ __forceinline__ int operator()(int c, int ls) const {
+    return (shl(c * ls, lsh) + rnd) >> rsh;
+  }
+};
 
 // spec 8.5.13.1 and the I16 DC of 8.5.10 share this form
 __device__ __forceinline__ int dequant6(int c, int ls, int qp) {
@@ -143,167 +234,214 @@ __device__ __forceinline__ int hsign(int i, int k) {
   return (rows >> (4 * i + k)) & 1 ? -1 : 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-residual_kernel(ResidualArgs a) {
-  __shared__ int s_y[kStrip][256];     // the strip's MBs, 16x16 raster
-  __shared__ int s_c[kStrip][2][64];   // chroma, 8x8 raster a plane
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.z, my = blockIdx.y;
-  const int mx0 = blockIdx.x * kStrip;
-  const int nmb = min(kStrip, a.mb_w - mx0);
-  const int n = a.mb_w * a.mb_h;
-  int* y = s_y[warp];
-  int (*c)[64] = s_c[warp];
+// the copies of MB mb's classes into its warp's staging buffer st, lane
+// by lane (16-byte groups); an I_PCM MB's samples straight into its
+// result tiles y and c
+__device__ __forceinline__ void stage_mb(const ResidualArgs& a, int kind,
+                                         bool use8, long mb, int* st, int* y,
+                                         int* c, int lane) {
+  if (a.pcm != nullptr && kind == kIPcm) {
+    for (int q = lane; q < 96; q += 32)
+      copy16(q < 64 ? y + 4 * q
+                    : c + ((q - 64) >> 4) * kCPitch + 4 * ((q - 64) & 15),
+             a.pcm + mb * 384 + 4 * q, a.vec & kVecPcm);
+    return;
+  }
+  for (int q = lane; q < 64; q += 32) {
+    if (use8)
+      copy16(st + (q >> 1) * 8 + 4 * ((q & 1) ^ swz8(q >> 1)),
+             a.luma8 + mb * 256 + 4 * q, a.vec & kVecLuma8);
+    else if (a.luma4 != nullptr)
+      copy16(st + (q >> 2) * 16 + 4 * ((q & 3) ^ swz4(q >> 2)),
+             a.luma4 + mb * 256 + 4 * q, a.vec & kVecLuma4);
+  }
+  if (a.luma_dc != nullptr && kind == kI16 && !use8 && lane < 4)
+    copy16(st + kLumaDc + 4 * lane, a.luma_dc + mb * 16 + 4 * lane,
+           a.vec & kVecLumaDc);
+  if (a.chroma_dc != nullptr && lane < 2)
+    copy16(st + kChromaDc + 4 * lane, a.chroma_dc + mb * 8 + 4 * lane,
+           a.vec & kVecChromaDc);
+  if (a.chroma_ac != nullptr)
+    copy16(st + kChromaAc + (lane >> 2) * 16 +
+               4 * ((lane & 3) ^ swz4(lane >> 2)),
+           a.chroma_ac + mb * 128 + 4 * lane, a.vec & kVecChromaAc);
+}
 
-  if (warp < nmb) {
-    const long mb = (long)b * n + (long)my * a.mb_w + mx0 + warp;
-    const int kind = a.kind[mb], qp = a.qp[mb];
-    const bool intra = kind <= kIPcm;
-    const bool byp = a.bypass && qp == 0;
-    const bool use8 = a.luma8 != nullptr && a.tr8[mb] > 0;
-    const bool is_pcm = a.pcm != nullptr && kind == kIPcm;
+// MB mb's residual (not I_PCM) from its staged classes st into its luma
+// tile y (16x16 raster) and chroma tiles c, c + kCPitch (8x8 rasters)
+__device__ __forceinline__ void compute_mb(const ResidualArgs& a, int kind,
+                                           int qp, bool use8, long mb,
+                                           const int* st, int* y, int* c,
+                                           int lane) {
+  const bool intra = kind <= kIPcm;
+  const bool byp = a.bypass && qp == 0;
+  const bool dc16 = a.luma_dc != nullptr && kind == kI16 && !use8;
+  const bool chroma = a.chroma_ac != nullptr || a.chroma_dc != nullptr;
 
-    if (is_pcm) {                      // I_PCM: the raw samples
-      for (int i = lane; i < 256; i += 32) y[i] = a.pcm[mb * 384 + i];
-      for (int i = lane; i < 128; i += 32)
-        c[i >> 6][i & 63] = a.pcm[mb * 384 + 256 + i];
-    } else {
-      if (lane < 16 && !use8) {        // a luma 4x4 block
-        const int gy = lane >> 2, gx = lane & 3;
-        int d[16], raw[16];
-        const int* ls = a.ws4 + ((intra ? 0 : 3) * 6 + qp % 6) * 16;
+  if (lane < 24 && (lane >= 16 || !use8)) {
+    // a 4x4 block, in one pass: lanes 0-15 luma block `blk`, 16-23
+    // chroma block k of plane pl (blk = pl * 4 + k)
+    const bool is_c = lane >= 16;
+    const int blk = is_c ? lane - 16 : lane;
+    const int pl = blk >> 2, k = blk & 3;
+    int qq = qp, row = (intra ? 0 : 3) * 6 + qp % 6;
+    if (is_c) {
+      qq = a.cqp[min(max(qp + (pl ? a.cqp1 : a.cqp0), 0), 51)];
+      row = ((intra ? 1 : 4) + pl) * 6 + qq % 6;
+    }
+    const bool have = is_c ? a.chroma_ac != nullptr : a.luma4 != nullptr;
+    const int* co = st + (is_c ? kChromaAc : 0) + blk * 16;
+    const Dequant4 dq(qq);
+    int d[16], raw[16];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int v = a.luma4 ? a.luma4[mb * 256 + lane * 16 + i] : 0;
-          raw[i] = v;
-          d[i] = a.luma4 ? dequant4(v, ls[i], qp) : 0;
-        }
-        if (a.luma_dc != nullptr && kind == kI16) {
-          const int* dc = a.luma_dc + mb * 16;
-          int f = 0;
-          for (int k = 0; k < 4; ++k)
-            for (int l = 0; l < 4; ++l)
-              f += hsign(gy, k) * dc[k * 4 + l] * hsign(l, gx);
-          d[0] = dequant6(f, a.ws4[(qp % 6) * 16], qp);
-          raw[0] = dc[lane];
-        }
-        if (!byp) idct4(d);
+    for (int p = 0; p < 4; ++p) {
+      const int4 v = have ? ld4(co + 4 * (p ^ swz4(blk)))
+                          : make_int4(0, 0, 0, 0);
+      const int4 l = __ldg(reinterpret_cast<const int4*>(a.ws4 + row * 16) + p);
+      raw[4 * p] = v.x, raw[4 * p + 1] = v.y;
+      raw[4 * p + 2] = v.z, raw[4 * p + 3] = v.w;
+      d[4 * p] = dq(v.x, l.x), d[4 * p + 1] = dq(v.y, l.y);
+      d[4 * p + 2] = dq(v.z, l.z), d[4 * p + 3] = dq(v.w, l.w);
+    }
+    if (!is_c && dc16) {               // the I16 DC's entry of this block
+      const int* dc = st + kLumaDc;
+      const int gy = blk >> 2, gx = blk & 3;
+      int f = 0;
+      for (int i = 0; i < 4; ++i)
+        for (int l = 0; l < 4; ++l)
+          f += hsign(gy, i) * dc[i * 4 + l] * hsign(l, gx);
+      d[0] = dequant6(f, a.ws4[(qp % 6) * 16], qp);
+      raw[0] = dc[blk];
+    }
+    if (is_c && a.chroma_dc != nullptr) {      // the 2x2 chroma DC's entry
+      const int* dc = st + kChromaDc + pl * 4;
+      const int sx = (k & 1) ? -1 : 1, sy = (k >> 1) ? -1 : 1;
+      const int f = dc[0] + sx * dc[1] + sy * dc[2] + sx * sy * dc[3];
+      d[0] = shl(f * a.ws4[row * 16], qq / 6) >> 5;
+      raw[0] = dc[k];
+    }
+    if (!byp) idct4(d);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+    for (int i = 0; i < 16; ++i) d[i] = byp ? raw[i] : d[i];
+    int* out = is_c ? c + pl * kCPitch + (k >> 1) * 32 + (k & 1) * 4
+                    : y + (blk >> 2) * 64 + (blk & 3) * 4;
+    const int pitch = is_c ? 8 : 16;
 #pragma unroll
-          for (int x = 0; x < 4; ++x)
-            y[(gy * 4 + r) * 16 + gx * 4 + x] = byp ? raw[r * 4 + x]
-                                                    : d[r * 4 + x];
-      } else if (lane >= 16 && lane < 24) {   // a chroma 4x4 block
-        const int pl = (lane - 16) >> 2, k = (lane - 16) & 3;
-        const int by = k >> 1, bx = k & 1;
-        int d[16], raw[16];
-        if (a.chroma_ac != nullptr || a.chroma_dc != nullptr) {
-          const int off = pl ? a.cqp1 : a.cqp0;
-          const int qpc = a.cqp[min(max(qp + off, 0), 51)];
-          const int* ls = a.ws4 + (((intra ? 1 : 4) + pl) * 6 + qpc % 6) * 16;
+    for (int r = 0; r < 4; ++r) st4(out + r * pitch, d + r * 4);
+  }
+  if (use8) {                          // four 8x8 blocks on 32 lanes
+    const int blk = lane >> 3, r = lane & 7;
+    int* base = y + (blk >> 1) * 128 + (blk & 1) * 8;
+    const int4* ls = reinterpret_cast<const int4*>(
+        a.ws8 + ((intra ? 0 : 1) * 6 + qp % 6) * 64 + r * 8);
+    const int4 lo = ld4(st + lane * 8 + 4 * swz8(lane));
+    const int4 hi = ld4(st + lane * 8 + 4 * (1 ^ swz8(lane)));
+    int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    if (!byp) {
+      const int4 l0 = __ldg(ls), l1 = __ldg(ls + 1);
+      const int l[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            const int v = a.chroma_ac
-                ? a.chroma_ac[mb * 128 + pl * 64 + k * 16 + i] : 0;
-            raw[i] = v;
-            d[i] = a.chroma_ac ? dequant4(v, ls[i], qpc) : 0;
-          }
-          if (a.chroma_dc != nullptr) {
-            const int* dc = a.chroma_dc + mb * 8 + pl * 4;
-            const int sx = bx ? -1 : 1, sy = by ? -1 : 1;
-            const int f = dc[0] + sx * dc[1] + sy * dc[2] + sx * sy * dc[3];
-            d[0] = shl(f * ls[0], qpc / 6) >> 5;
-            raw[0] = dc[k];
-          }
-          if (!byp) idct4(d);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) d[i] = raw[i] = 0;
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            c[pl][(by * 4 + r) * 8 + bx * 4 + x] = byp ? raw[r * 4 + x]
-                                                       : d[r * 4 + x];
+      for (int j = 0; j < 8; ++j) v[j] = dequant6(v[j], l[j], qp);
+      idct8_line(v, 1);                // horizontal: this lane's row
+    }
+    st4(base + r * 16, v);
+    st4(base + r * 16 + 4, v + 4);
+    __syncwarp();
+    if (!byp) {                        // vertical: column r of the block
+      idct8_line(base + r, 16);
+      for (int i = 0; i < 8; ++i)
+        base[i * 16 + r] = (base[i * 16 + r] + 32) >> 6;
+    }
+  }
+  __syncwarp();
+
+  // lossless intra DPCM (8.3.5): lanes 0-15 scan luma columns, 16-31
+  // rows; each sample belongs to one direction's cells at most, so the
+  // two sets of lanes write disjoint samples
+  if (byp && kind <= kI16) {
+    const int t = kind == kI4x4 ? 4 : kind == kI8x8 ? 8 : 16;
+    const bool vert = lane < 16;
+    const int line = lane & 15;
+    int run = 0;
+    for (int i = 0; i < 16; ++i) {
+      const int yy = vert ? i : line, xx = vert ? line : i;
+      int mode;
+      if (kind == kI4x4)
+        mode = a.i4_modes[mb * 16 + (yy >> 2) * 4 + (xx >> 2)];
+      else if (kind == kI8x8)
+        mode = a.i8_modes[mb * 4 + (yy >> 3) * 2 + (xx >> 3)];
+      else
+        mode = a.i16_mode[mb];
+      if (i % t == 0) run = 0;
+      if (mode == (vert ? 0 : 1)) {
+        run += y[yy * 16 + xx];
+        y[yy * 16 + xx] = run;
       }
-      if (use8) {                      // four 8x8 blocks on 32 lanes
-        const int blk = lane >> 3, r = lane & 7;
-        int* base = y + (blk >> 1) * 128 + (blk & 1) * 8;
-        const int* src = a.luma8 + mb * 256 + blk * 64 + r * 8;
-        const int* ls = a.ws8 + ((intra ? 0 : 1) * 6 + qp % 6) * 64 + r * 8;
-        int v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = byp ? src[j] : dequant6(src[j], ls[j], qp);
-        if (!byp) idct8_line(v, 1);    // horizontal: this lane's row
-#pragma unroll
-        for (int j = 0; j < 8; ++j) base[r * 16 + j] = v[j];
-        __syncwarp();
-        if (!byp) {                    // vertical: column r of the block
-          idct8_line(base + r, 16);
-          for (int i = 0; i < 8; ++i)
-            base[i * 16 + r] = (base[i * 16 + r] + 32) >> 6;
-        }
-      }
-      __syncwarp();
-
-      // lossless intra DPCM (8.3.5): lanes 0-15 scan luma columns, 16-31
-      // rows; each sample belongs to one direction's cells at most, so
-      // the two sets of lanes write disjoint samples
-      if (byp && kind <= kI16) {
-        const int t = kind == kI4x4 ? 4 : kind == kI8x8 ? 8 : 16;
-        const bool vert = lane < 16;
-        const int line = lane & 15;
-        int run = 0;
-        for (int i = 0; i < 16; ++i) {
-          const int yy = vert ? i : line, xx = vert ? line : i;
-          int mode;
-          if (kind == kI4x4)
-            mode = a.i4_modes[mb * 16 + (yy >> 2) * 4 + (xx >> 2)];
-          else if (kind == kI8x8)
-            mode = a.i8_modes[mb * 4 + (yy >> 3) * 2 + (xx >> 3)];
-          else
-            mode = a.i16_mode[mb];
-          if (i % t == 0) run = 0;
-          if (mode == (vert ? 0 : 1)) {
-            run += y[yy * 16 + xx];
-            y[yy * 16 + xx] = run;
-          }
-        }
-        if (a.chroma_ac != nullptr || a.chroma_dc != nullptr) {
-          // chroma: mode 2 vertical, 1 horizontal, over the 8x8 MB
-          const int cm = a.chroma_mode[mb];
-          const int pl = line >> 3, l8 = line & 7;
-          if (cm == (vert ? 2 : 1)) {
-            int run_c = 0;
-            for (int i = 0; i < 8; ++i) {
-              int& s = vert ? c[pl][i * 8 + l8] : c[pl][l8 * 8 + i];
-              run_c += s;
-              s = run_c;
-            }
-          }
+    }
+    if (chroma) {
+      // chroma: mode 2 vertical, 1 horizontal, over the 8x8 MB
+      const int cm = a.chroma_mode[mb];
+      int* cp = c + (line >> 3) * kCPitch;
+      const int l8 = line & 7;
+      if (cm == (vert ? 2 : 1)) {
+        int run_c = 0;
+        for (int i = 0; i < 8; ++i) {
+          int& s = vert ? cp[i * 8 + l8] : cp[l8 * 8 + i];
+          run_c += s;
+          s = run_c;
         }
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+residual_kernel(ResidualArgs a) {
+  __shared__ __align__(16) int s_stage[kStrip][kStage];
+  __shared__ __align__(16) int s_y[kStrip][kYPitch];   // the strip's MBs
+  __shared__ __align__(16) int s_c[kStrip][2][kCPitch];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, my = blockIdx.y;
+  const int mx0 = blockIdx.x * kStrip;
+  const int nmb = min(kStrip, a.mb_w - mx0);
+  const int H = a.mb_h * 16, W = a.mb_w * 16;
+
+  if (warp < nmb) {
+    const long mb = ((long)b * a.mb_h + my) * a.mb_w + mx0 + warp;
+    const int kind = a.kind[mb], qp = a.qp[mb];
+    const bool use8 = a.luma8 != nullptr && a.tr8[mb] > 0;
+    const bool pcm = a.pcm != nullptr && kind == kIPcm;
+    stage_mb(a, kind, use8, mb, s_stage[warp], s_y[warp], s_c[warp][0],
+             lane);
+    copy_wait_all();
+    __syncwarp();
+    if (!pcm)                          // I_PCM overrides all
+      compute_mb(a, kind, qp, use8, mb, s_stage[warp], s_y[warp],
+                 s_c[warp][0], lane);
+  }
   __syncthreads();
 
-  // the strip's rows, each output word once
-  const int H = a.mb_h * 16, W = a.mb_w * 16;
-  const int wy = nmb * 16;
-  for (int i = threadIdx.x; i < 16 * wy; i += kThreads) {
-    const int r = i / wy, x = i % wy;
-    a.res_y[((long)b * H + my * 16 + r) * W + mx0 * 16 + x] =
-        s_y[x >> 4][r * 16 + (x & 15)];
+  // the strip as int4 groups, each output word once: a full strip's luma
+  // rows are kYGroups groups, its chroma rows kCGroups (powers of two:
+  // shifts and masks); a ragged strip's columns past its nmb MBs are
+  // masked
+#pragma unroll
+  for (int j = threadIdx.x; j < 16 * kYGroups; j += kThreads) {
+    const int r = j / kYGroups, x = (j % kYGroups) * 4;
+    if (x < nmb * 16)
+      *reinterpret_cast<int4*>(
+          a.res_y + ((long)b * H + my * 16 + r) * W + mx0 * 16 + x) =
+          ld4(&s_y[x >> 4][r * 16 + (x & 15)]);
   }
-  const int wc = nmb * 8;
-  for (int i = threadIdx.x; i < 2 * 8 * wc; i += kThreads) {
-    const int pl = i / (8 * wc), r = (i / wc) % 8, x = i % wc;
+#pragma unroll
+  for (int j = threadIdx.x; j < 2 * 8 * kCGroups; j += kThreads) {
+    const int pl = j / (8 * kCGroups), r = j / kCGroups % 8;
+    const int x = (j % kCGroups) * 4;
     int32_t* out = pl ? a.res_cr : a.res_cb;
-    out[((long)b * (H / 2) + my * 8 + r) * (W / 2) + mx0 * 8 + x] =
-        s_c[x >> 3][pl][r * 8 + (x & 7)];
+    if (x < nmb * 8)
+      *reinterpret_cast<int4*>(
+          out + ((long)b * (H / 2) + my * 8 + r) * (W / 2) + mx0 * 8 + x) =
+          ld4(&s_c[x >> 3][pl][r * 8 + (x & 7)]);
   }
 }
 
@@ -317,11 +455,11 @@ extern "C" int residual_launch(
     const int32_t* i16_mode, const int32_t* chroma_mode, const int32_t* ws4,
     const int32_t* ws8, const int32_t* cqp, int32_t* res_y, int32_t* res_cb,
     int32_t* res_cr, int B, int mb_w, int mb_h, int cqp0, int cqp1,
-    int bypass, void* stream) {
+    int bypass, int vec, void* stream) {
   ResidualArgs a{kind, qp, tr8, luma4, luma8, luma_dc, chroma_dc,
                  chroma_ac, pcm, i4_modes, i8_modes, i16_mode, chroma_mode,
                  ws4, ws8, cqp, res_y, res_cb, res_cr, B, mb_w, mb_h, cqp0,
-                 cqp1, bypass};
+                 cqp1, bypass, vec};
   if (B == 0 || mb_w == 0 || mb_h == 0) return 0;
   const dim3 grid((mb_w + kStrip - 1) / kStrip, mb_h, B);
   residual_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);

@@ -35,6 +35,27 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def lane_stride(t, name: str, dtype, shape, device) -> int:
+    """t's stride between lanes, in elements, after checking that t is a
+    [B, ...] tensor of `dtype` and `shape` on `device` whose lanes are
+    each contiguous and whose address is a multiple of its element size
+    (lanes may lie apart, as the slots of a [B, S, H, W] picture stack or
+    the sections of a wire buffer do)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t[:1].numel() and not t[0].is_contiguous():
+        raise ValueError(f"{name}: a lane's elements are not contiguous")
+    if not 0 <= t.stride(0) < 2**31 or t.data_ptr() % t.element_size():
+        raise ValueError(f"{name}: lane stride {t.stride(0)} or address "
+                         "not usable")
+    return t.stride(0)
+
+
 def cuda_device(t):
     """t's device if it is a CUDA device; None for CPU; raise otherwise."""
     if t.device.type == "cuda":

@@ -7,7 +7,7 @@ pad_chroma).  The plain version is ops/inter.py::store_refs_plain, ~60
 eager torch launches, a stack and an index assignment a call; the kernel
 is one launch a round (one more for each 64 storing lanes past the
 first) that writes the G, b, h, j planes and the padded chroma of each
-storing lane straight into its DPB slot.  The lanes and slots travel as
+storing lane straight into its DPB slot, 16 bytes a store.  The lanes and slots travel as
 kernel arguments, so the call copies nothing to the device.
 """
 
@@ -17,19 +17,7 @@ import numpy as np
 import torch
 
 from ..inter import PAD, PADC, store_refs_plain
-from . import LAUNCHES, build, cuda_device, require
-
-
-def _lane_stride(t, name: str, shape, device) -> int:
-    """t's stride between lanes, in elements, after checking that t is a
-    uint8 [B, ...] tensor of `shape` on `device` whose lanes are each
-    contiguous (lanes may lie apart, as the slots of a [B, S, H, W]
-    picture stack do)."""
-    require(t[:1], name, torch.uint8, (1, *shape[1:]), device)
-    if t.shape[0] != shape[0] or not 0 <= t.stride(0) < 2**31:
-        raise ValueError(f"{name}: {t.shape[0]} lanes, lane stride "
-                         f"{t.stride(0)}; expected {shape[0]} lanes")
-    return t.stride(0)
+from . import LAUNCHES, build, cuda_device, lane_stride, require
 
 
 def store_refs(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b, cr_b) -> None:
@@ -53,9 +41,13 @@ def store_refs(dpb_y_b, dpb_c_b, lanes, slots, y_b, cb_b, cr_b) -> None:
             (B, S, 4, H + 2 * PAD, W + 2 * PAD), dev)
     require(dpb_c_b, "dpb_c", torch.uint8,
             (B, S, 2, H // 2 + 2 * PADC, W // 2 + 2 * PADC), dev)
-    if dpb_y_b.data_ptr() % 4 or dpb_c_b.data_ptr() % 4:
-        raise ValueError("dpb_y, dpb_c: data_ptr() is not 4-byte aligned")
-    strides = [_lane_stride(t, k, s, dev) for t, k, s in (
+    # the kernel writes 16-byte groups (8-byte ones in the chroma rows of
+    # an odd mb_w): every slot and plane of a DPB starts a multiple of 64
+    # bytes after its first byte, so the base must be 16-byte aligned, as
+    # models/pipeline.py::dpb_alloc's fresh allocations are
+    if dpb_y_b.data_ptr() % 16 or dpb_c_b.data_ptr() % 16:
+        raise ValueError("dpb_y, dpb_c: data_ptr() is not 16-byte aligned")
+    strides = [lane_stride(t, k, torch.uint8, s, dev) for t, k, s in (
         (y_b, "y", (y_b.shape[0], H, W)),
         (cb_b, "cb", (y_b.shape[0], H // 2, W // 2)),
         (cr_b, "cr", (y_b.shape[0], H // 2, W // 2)))]

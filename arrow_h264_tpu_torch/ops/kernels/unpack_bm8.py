@@ -17,28 +17,9 @@ from __future__ import annotations
 import torch
 
 from ..wire import _scatter_bm8
-from . import LAUNCHES, build, cuda_device
+from . import LAUNCHES, build, cuda_device, lane_stride
 
 DEVICE_LAUNCHES = 3        # kernels one wrapper call puts on the card
-
-
-def _lane_stride(t, name: str, dtype, shape, device) -> int:
-    """t's stride between lanes, in elements, after checking that t is a
-    [B, ...] tensor of `dtype` and `shape` on `device` whose rows are
-    contiguous (lanes may lie apart, as sections of a wire buffer do)."""
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t[:1].numel() and not t[0].is_contiguous():
-        raise ValueError(f"{name}: a lane's elements are not contiguous")
-    if t.stride(0) >= 2**31 or t.data_ptr() % t.element_size():
-        raise ValueError(f"{name}: lane stride {t.stride(0)} or address "
-                         "not usable")
-    return t.stride(0)
 
 
 def unpack_bm8(idx, bm, vals, grid: int, w: int):
@@ -55,9 +36,9 @@ def unpack_bm8(idx, bm, vals, grid: int, w: int):
             or grid < 0:
         raise ValueError(f"unpack_bm8: w {w}, {bmw} bitmap words, {bv} "
                          f"values, grid {grid}")
-    strides = (_lane_stride(idx, "idx", torch.int32, (B, br), dev),
-               _lane_stride(bm, "bm", torch.int16, (B, br, bmw), dev),
-               _lane_stride(vals, "vals", torch.int8, (B, bv), dev))
+    strides = (lane_stride(idx, "idx", torch.int32, (B, br), dev),
+               lane_stride(bm, "bm", torch.int16, (B, br, bmw), dev),
+               lane_stride(vals, "vals", torch.int8, (B, bv), dev))
     out = torch.empty((B, grid, w), dtype=torch.int32, device=dev)
     # the row map [B, grid], each row's first value [B, br] and the chunk
     # totals (at most one a row)

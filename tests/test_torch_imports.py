@@ -98,6 +98,7 @@ def test_cli_help_imports_no_jax():
                                     "tools/deblock_bench.py",
                                     "tools/mc_bench.py",
                                     "tools/tables_wire_bench.py",
+                                    "tools/stage_bench.py",
                                     "tools/gpu_conformance.py",
                                     "tools/conformance_streams.py"])
 def test_scripts_import_only_the_port(script):

@@ -623,6 +623,30 @@ def test_residual_kernel_synthetic(dev, inter):
     _check_residual(a, 120, 68, _ws(dev), (0, 0), False)
 
 
+@pytest.mark.parametrize("mb_w,mb_h,B,bypass", [
+    (11, 9, 2, False), (11, 9, 2, True), (240, 135, 4, False)])
+def test_residual_kernel_sizes(dev, mb_w, mb_h, B, bypass):
+    """K9 at QCIF (11x9 MBs: an odd width, a ragged strip) and at
+    3840x2160 with four lanes."""
+    a = _residual_abi(mb_w, mb_h, B, mb_h + B, dev)
+    _check_residual(a, mb_w, mb_h, _ws(dev, scaled=True), (2, -3), bypass)
+
+
+@pytest.mark.parametrize("bypass", [False, True], ids=["lossy", "bypass"])
+@pytest.mark.parametrize("shift", [tuple(k for k, _ in CLASS_SHAPES),
+                                   ("luma4", "chroma_ac", "pcm")],
+                         ids=lambda s: "-".join(s))
+def test_residual_kernel_unaligned_classes(dev, shift, bypass):
+    """Class tensors whose base lies one word past a 16-byte boundary
+    (views of one buffer): the kernel stages them a word at a time."""
+    a = _residual_abi(11, 9, 2, 13, dev)
+    for k in shift:
+        buf = torch.empty(a[k].numel() + 4, dtype=torch.int32, device=dev)
+        a[k] = buf[1:1 + a[k].numel()].view(a[k].shape).copy_(a[k])
+        assert a[k].data_ptr() % 16 == 4
+    _check_residual(a, 11, 9, _ws(dev, scaled=True), (2, -3), bypass)
+
+
 def _combine_case(mb_w, mb_h, B, seed, dev, weights):
     """(abi, pred_y, pred_c, res_y, res_cb, res_cr) on the card:
     random_weighted_abi with per-slice tables ("tables"), one table for
@@ -720,6 +744,44 @@ def test_store_refs_kernel_lane_strides(dev):
     dpbs = _store_case(mb_w, mb_h, B, S, 9, dev)
     for s in range(S):
         _check_store(dpbs, [0, 1], [s, s], (y[:, s], c[:, s, 0], c[:, s, 1]))
+
+
+@pytest.mark.parametrize("mb_w,mb_h,B", [(11, 9, 3), (240, 135, 4)])
+def test_store_refs_kernel_sizes(dev, mb_w, mb_h, B):
+    """K11 at QCIF (an odd mb_w: 8-byte chroma stores; tiles ragged on
+    both axes) and at 3840x2160 with four storing lanes."""
+    dpbs = _store_case(mb_w, mb_h, B, 2, mb_w, dev)
+    _check_store(dpbs, list(range(B)), [1] * B,
+                 _pictures(mb_w, mb_h, B, mb_h, dev))
+
+
+def test_store_refs_kernel_unaligned_pictures(dev):
+    """Pictures whose lanes start off 16-byte (luma) and 8-byte (chroma)
+    boundaries: the kernel stages and copies them byte by byte."""
+    mb_w, mb_h, B = 11, 9, 2
+    pics = []
+    for p in _pictures(mb_w, mb_h, B, 4, dev):
+        buf = torch.empty(p.numel() + 8, dtype=torch.uint8, device=dev)
+        pics.append(buf[3:3 + p.numel()].view(p.shape).copy_(p))
+    assert all(p.data_ptr() % 8 == 3 for p in pics)
+    _check_store(_store_case(mb_w, mb_h, B, 2, 5, dev), [1, 0], [0, 1],
+                 pics)
+
+
+def test_store_refs_refuses_unaligned_dpb(dev):
+    """K11 writes 16-byte groups: a DPB view off a 16-byte boundary is
+    refused with a ValueError, never launched."""
+    mb_w, mb_h, B = 7, 5, 1
+    dpbs = _store_case(mb_w, mb_h, B, 2, 1, dev)
+    pics = _pictures(mb_w, mb_h, B, 1, dev)
+    n0 = dict(kernels.LAUNCHES)
+    for i in range(2):
+        buf = torch.empty(dpbs[i].numel() + 8, dtype=torch.uint8, device=dev)
+        bad = list(dpbs)
+        bad[i] = buf[8:].view(dpbs[i].shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            store_refs(*bad, [0], [1], *pics)
+    assert kernels.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("order", ORDERS)
