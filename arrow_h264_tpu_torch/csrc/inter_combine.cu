@@ -18,15 +18,24 @@
 // (12.4 MB): up to ~31 MB, ~0.009 ms at 3.35 TB/s.
 //
 // What the design does about it: one thread a 4x4 luma cell (and the 2x2
-// chroma cell under it), consecutive threads along the picture's rows, so
-// a warp reads and writes 32 adjacent cells of a row of samples.  A cell
-// reads the predictions of the lists it combines only: one list for a
-// unidirectional cell.  Each
-// thread looks its weights up once: from the per-slice table (wtab
-// [B, 16, 33, 33, 3, 4] at slice_id and both lists' refidx, clamped to
-// [-1, 31] and offset by one; slogwd [B, 16, 2] at slice_id), or, with
-// the dense upload, from wp [B, n, 4, 4, 2, 3, 2] and logwd [B, n, 2].
-// wtab may be one table for every lane (lane stride 0).
+// chroma cells under it), consecutive threads along the picture's rows, and
+// each row of a cell one access of each kind: a 4-byte load of each list's
+// prediction the cell combines (one list for a unidirectional cell), a
+// 16-byte residual load and a 16-byte store (chroma: 2-byte prediction
+// loads, 8-byte residual loads and stores), so that a warp's row of 32 cells
+// reads and writes 512 contiguous bytes of residual and of output in one
+// instruction each.  The four threads of an MB's cells in a row take kind,
+// slice_id and the MB's logwd (slogwd at slice_id, or the dense logwd) from
+// the first of them by shuffles, so they are read once an MB row, while each
+// thread reads its cell's refslot and refidx pairs (8-byte loads).  An inter
+// cell then issues every other load before its first store: its residual
+// rows, its weights, three 16-byte loads, and the predictions of the lists
+// it reads.  The weights are the per-slice table's entry (wtab [B, 16, 33,
+// 33, 3, 4] at slice_id and both lists' refidx, clamped to [-1, 31] and
+// offset by one, 48 bytes), or, with the dense upload, the cell's wp [B, n,
+// 4, 4, 2, 3, 2] (48 bytes).  wtab may be one table for every lane (lane
+// stride 0).  Intra MBs write their zeros with the same stores.  The wrapper
+// checks the alignments these accesses need (ops/kernels/inter_combine.py).
 //
 // The plain version's rules that this reproduces word for word:
 // - a list is used where its refslot >= 0; both used: the weighted
@@ -91,75 +100,158 @@ __device__ __forceinline__ int combine(int p0, int p1, const Weights& w,
                          : p * ww + o);
 }
 
+// byte k of a row's packed predictions
+__device__ __forceinline__ int byte_of(unsigned v, int k) {
+  return (v >> (8 * k)) & 255;
+}
+
+// a luma row: the combined samples plus the residual, clipped, as one
+// 16-byte store
+__device__ __forceinline__ void store_row(int32_t* out, const int* v,
+                                          int4 res) {
+  *reinterpret_cast<int4*>(out) =
+      make_int4(clip255(v[0] + res.x), clip255(v[1] + res.y),
+                clip255(v[2] + res.z), clip255(v[3] + res.w));
+}
+
 __global__ void __launch_bounds__(kThreads)
 inter_combine_kernel(CombineArgs a) {
   const int cw = 4 * a.mb_w, ch = 4 * a.mb_h;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)a.B * ch * cw) return;
-  const int cx = t % cw, cy = (t / cw) % ch;
-  const int b = t / ((long)cw * ch);
+  const long total = (long)a.B * ch * cw;
+  const long t = (long)blockIdx.x * kThreads + threadIdx.x;
+  // a thread past the end stands in for cell 0 until the shuffles are done
+  const bool live = t < total;
+  const long tc = live ? t : 0;
+  const int cx = tc % cw, cy = (tc / cw) % ch;
+  const int b = tc / ((long)cw * ch);
   const int n = a.mb_w * a.mb_h;
   const long mb = (long)b * n + (cy >> 2) * a.mb_w + (cx >> 2);
   const long cell = mb * 16 + (cy & 3) * 4 + (cx & 3);
+
+  // the MB's fields, read by the first of its four threads (cw is a
+  // multiple of 4, so the four are lanes 4k..4k+3 of one warp), while
+  // each thread reads its cell's pair of lists (and of refidx)
+  const int lane = threadIdx.x & 31, lead = lane & ~3;
+  int kind = 0, sid = 0;
+  int2 lw = make_int2(0, 0);
+  if (lane == lead) {
+    kind = __ldg(a.kind + mb);
+    if (a.dense) {
+      lw = __ldg(reinterpret_cast<const int2*>(a.logwd + mb * 2));
+    } else {
+      sid = __ldg(a.slice_id + mb);
+      lw = __ldg(reinterpret_cast<const int2*>(
+          a.slogwd + ((long)b * kSlices + sid) * 2));
+    }
+  }
+  const int2 slot = __ldg(reinterpret_cast<const int2*>(a.refslot +
+                                                        cell * 2));
+  const int2 ri = a.dense ? make_int2(0, 0)
+                          : __ldg(reinterpret_cast<const int2*>(
+                                a.refidx + cell * 2));
+  kind = __shfl_sync(0xffffffffu, kind, lead);
+  sid = __shfl_sync(0xffffffffu, sid, lead);
+  lw.x = __shfl_sync(0xffffffffu, lw.x, lead);
+  lw.y = __shfl_sync(0xffffffffu, lw.y, lead);
+  if (!live) return;
+
   const int H = 16 * a.mb_h, W = 16 * a.mb_w, Hc = H / 2, Wc = W / 2;
   const long ry = ((long)b * H + cy * 4) * W + cx * 4;
   const long rc = ((long)b * Hc + cy * 2) * Wc + cx * 2;
-
-  if (a.kind[mb] < kKindP) {           // intra: 0
+  if (kind < kKindP) {                 // intra: 0
+#pragma unroll
     for (int r = 0; r < 4; ++r)
-      for (int x = 0; x < 4; ++x) a.init_y[ry + r * W + x] = 0;
-    for (int r = 0; r < 2; ++r)
-      for (int x = 0; x < 2; ++x) {
-        a.init_cb[rc + r * Wc + x] = 0;
-        a.init_cr[rc + r * Wc + x] = 0;
-      }
+      *reinterpret_cast<int4*>(a.init_y + ry + r * W) = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<int2*>(a.init_cb + rc + r * Wc) = make_int2(0, 0);
+      *reinterpret_cast<int2*>(a.init_cr + rc + r * Wc) = make_int2(0, 0);
+    }
     return;
   }
-  const bool u0 = a.refslot[cell * 2] >= 0, u1 = a.refslot[cell * 2 + 1] >= 0;
+  // every other load of the cell before its stores, so that they are in
+  // flight together: the residual rows, its weights and the predictions
+  // of the lists it reads
+  int4 res_y[4];
+  int2 res_c[2][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    res_y[r] = __ldg(reinterpret_cast<const int4*>(a.res_y + ry + r * W));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    res_c[0][r] = __ldg(reinterpret_cast<const int2*>(a.res_cb + rc +
+                                                       r * Wc));
+    res_c[1][r] = __ldg(reinterpret_cast<const int2*>(a.res_cr + rc +
+                                                       r * Wc));
+  }
+  const bool u0 = slot.x >= 0, u1 = slot.y >= 0;
   const bool both = u0 && u1, only1 = !u0;
-  Weights w[3];
-  int lw[2];
+  const bool read0 = !only1, read1 = u1 || only1;   // the lists it reads
+  const int4* wt;
   if (a.dense) {
-    const int32_t* p = a.wp + cell * 12;     // [list][plane][w, o]
-    for (int pl = 0; pl < 3; ++pl)
-      w[pl] = {p[pl * 2], p[pl * 2 + 1], p[6 + pl * 2], p[6 + pl * 2 + 1]};
-    lw[0] = a.logwd[mb * 2];
-    lw[1] = a.logwd[mb * 2 + 1];
+    wt = reinterpret_cast<const int4*>(a.wp + cell * 12);
   } else {
-    const int sid = a.slice_id[mb];
-    const int r0 = min(max(a.refidx[cell * 2], -1), 31) + 1;
-    const int r1 = min(max(a.refidx[cell * 2 + 1], -1), 31) + 1;
-    const int32_t* p = a.wtab + (long)b * a.wtab_stride +
-                       (((long)sid * kRefs + r0) * kRefs + r1) * 12;
-    for (int pl = 0; pl < 3; ++pl)
-      w[pl] = {p[pl * 4], p[pl * 4 + 1], p[pl * 4 + 2], p[pl * 4 + 3]};
-    lw[0] = a.slogwd[((long)b * kSlices + sid) * 2];
-    lw[1] = a.slogwd[((long)b * kSlices + sid) * 2 + 1];
+    const int r0 = min(max(ri.x, -1), 31) + 1;
+    const int r1 = min(max(ri.y, -1), 31) + 1;
+    wt = reinterpret_cast<const int4*>(
+        a.wtab + (long)b * a.wtab_stride +
+        (((long)sid * kRefs + r0) * kRefs + r1) * 12);
+  }
+  const int4 q0 = __ldg(wt), q1 = __ldg(wt + 1), q2 = __ldg(wt + 2);
+  const long plane_y = (long)H * W, plane_c = (long)Hc * Wc;
+  const uint8_t* py =
+      a.pred_y + (long)b * 2 * plane_y + (long)(cy * 4) * W + cx * 4;
+  const uint8_t* pc =
+      a.pred_c + (long)b * 4 * plane_c + (long)(cy * 2) * Wc + cx * 2;
+  unsigned p_y[2][4], p_c[2][2][2];     // [list][(plane,) row]
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const bool read = l ? read1 : read0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p_y[l][r] = read ? __ldg(reinterpret_cast<const unsigned*>(
+                             py + l * plane_y + r * W))
+                       : 0u;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        p_c[l][pl][r] = read ? __ldg(reinterpret_cast<const unsigned short*>(
+                                   pc + (2 * l + pl) * plane_c + r * Wc))
+                             : 0u;
+  }
+  Weights w[3];
+  if (a.dense) {                       // [list][plane][w, o]
+    w[0] = {q0.x, q0.y, q1.z, q1.w};
+    w[1] = {q0.z, q0.w, q2.x, q2.y};
+    w[2] = {q1.x, q1.y, q2.z, q2.w};
+  } else {                             // [plane][w0, o0, w1, o1]
+    w[0] = {q0.x, q0.y, q0.z, q0.w};
+    w[1] = {q1.x, q1.y, q1.z, q1.w};
+    w[2] = {q2.x, q2.y, q2.z, q2.w};
   }
 
-  const long plane_y = (long)H * W;
-  const uint8_t* py = a.pred_y + (long)b * 2 * plane_y;
-  for (int r = 0; r < 4; ++r)
-    for (int x = 0; x < 4; ++x) {
-      const long o = (long)(cy * 4 + r) * W + cx * 4 + x;
-      const int v = combine(only1 ? 0 : py[o], u1 || only1 ? py[plane_y + o]
-                            : 0, w[0], lw[0], both, only1);
-      a.init_y[ry + r * W + x] = clip255(v + a.res_y[ry + r * W + x]);
-    }
-  const long plane_c = (long)Hc * Wc;
-  const uint8_t* pc = a.pred_c + (long)b * 4 * plane_c;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    int v[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      v[x] = combine(byte_of(p_y[0][r], x), byte_of(p_y[1][r], x), w[0],
+                     lw.x, both, only1);
+    store_row(a.init_y + ry + r * W, v, res_y[r]);
+  }
+#pragma unroll
   for (int pl = 0; pl < 2; ++pl) {
-    const int32_t* res = pl ? a.res_cr : a.res_cb;
     int32_t* out = pl ? a.init_cr : a.init_cb;
-    for (int r = 0; r < 2; ++r)
-      for (int x = 0; x < 2; ++x) {
-        const long o = (long)(cy * 2 + r) * Wc + cx * 2 + x;
-        const int v = combine(
-            only1 ? 0 : pc[pl * plane_c + o],
-            u1 || only1 ? pc[(2 + pl) * plane_c + o] : 0, w[1 + pl], lw[1],
-            both, only1);
-        out[rc + r * Wc + x] = clip255(v + res[rc + r * Wc + x]);
-      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int2 rv = res_c[pl][r];
+      *reinterpret_cast<int2*>(out + rc + r * Wc) = make_int2(
+          clip255(combine(byte_of(p_c[0][pl][r], 0), byte_of(p_c[1][pl][r], 0),
+                          w[1 + pl], lw.y, both, only1) + rv.x),
+          clip255(combine(byte_of(p_c[0][pl][r], 1), byte_of(p_c[1][pl][r], 1),
+                          w[1 + pl], lw.y, both, only1) + rv.y));
+    }
   }
 }
 

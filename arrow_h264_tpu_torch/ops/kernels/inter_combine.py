@@ -8,7 +8,8 @@ into its one jitted decode.  The plain version is ops/inter.py::
 inter_init_plain, ~150 eager torch launches a call; the kernel is one
 launch, a thread a 4x4 cell, that looks each cell's weights up in the
 per-slice tables (wtab, slogwd at slice_id and refidx) or, for a dense
-upload (abi["wp"]), in wp/logwd.
+upload (abi["wp"]), in wp/logwd, and reads and writes each row of a cell
+as one access (`ALIGN`: the alignment each tensor's address must have).
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ from ..inter import inter_init_plain
 from . import LAUNCHES, build, cuda_device, require
 
 WTAB_LANE = (MAX_SLICES, 33, 33, 3, 4)     # a lane's weight table
+# the bytes each tensor's address must be a multiple of: a row of a cell
+# is a 4-byte luma and a 2-byte chroma prediction load, a 16-byte luma
+# and an 8-byte chroma residual load and store; a cell's refslot and
+# refidx pairs and an MB's logwd or slogwd pair are 8-byte loads, its 12
+# weight words three 16-byte loads
+ALIGN = {"pred_y": 4, "pred_c": 2, "res_y": 16, "res_cb": 8, "res_cr": 8,
+         "refslot": 8, "refidx": 8, "wtab": 16, "wp": 16, "slogwd": 8,
+         "logwd": 8}
 
 
 def _wtab_stride(wtab, B: int, dev) -> int:
@@ -68,6 +77,18 @@ def inter_combine(abi, pred_y, pred_c, res_y, res_cb, res_cr, mb_w: int,
         require(abi["refidx"], "refidx", torch.int32, (B, n, 4, 4, 2), dev)
         tables = [abi[k].data_ptr() for k in ("wtab", "slogwd", "slice_id",
                                               "refidx")] + [None, None]
+    named = {"pred_y": pred_y, "pred_c": pred_c, "res_y": res_y,
+             "res_cb": res_cb, "res_cr": res_cr}
+    named.update((k, abi[k]) for k in ("refslot",) + (
+        ("wp", "logwd") if dense else ("wtab", "slogwd", "refidx")))
+    for k, t in named.items():
+        if t.data_ptr() % ALIGN[k]:
+            raise ValueError(f"inter_combine: {k} at address "
+                             f"{t.data_ptr()}, not a multiple of "
+                             f"{ALIGN[k]} bytes")
+    if stride % 4:
+        raise ValueError(f"inter_combine: wtab lane stride {stride}, not a "
+                         "multiple of 16 bytes")
     out = (torch.empty((B, H, W), dtype=torch.int32, device=dev),
            *(torch.empty((B, H // 2, W // 2), dtype=torch.int32, device=dev)
              for _ in range(2)))

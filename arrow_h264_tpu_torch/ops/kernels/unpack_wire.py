@@ -5,18 +5,18 @@ Replaces no pallas_call: the reference unpacks the wire in XLA
 unpack_fn).  The plain version is ops/wire.py::unpack_wire_plain, ~110
 eager torch launches a call.  `unpack_wire` gives the same dict: K12
 writes every key but the bm8 coefficient classes, which K8
-(ops/kernels/unpack_bm8.py) expands, one call a class.
+(ops/kernels/unpack_bm8.py) expands, one call for all of them.
 
 `plan` lays K12's work out as a table of segments, one an output key (and
-one for each key's sparse rows): the op of csrc/unpack_wire.cu that
-makes its words, its rows and words a row, the wire section it reads, its
-first block, where its words go in the one int32 allocation that holds
-every output, and the multiplier and shift that give a word's row
-without a division.  A block of the kernel stages the rows it reads
-from the [B, total] wire (a lane's row stride apart) in shared memory,
-so the wrapper copies nothing, and writes each output word once (launch
-1) but the words of MBs that a sparse row covers, written again by
-launch 2, 4 words a store.
+one for each key's sparse rows): the op of csrc/unpack_wire.cu that makes
+its words, its rows and words a row, the wire section it reads, its first
+block, where its words go in the one int32 allocation that holds every
+output (K8's classes included, after K12's keys), and the multiplier and
+shift that give a word's row without a division.  A block of the kernel
+stages the rows it reads from the [B, total] wire (a lane's row stride
+apart) in shared memory, so the wrapper copies nothing, and writes each
+output word once (launch 1) but the words of MBs that a sparse row
+covers, written again by launch 2, 4 words a store.
 """
 
 from __future__ import annotations
@@ -29,12 +29,12 @@ import torch
 
 from ..abi import MAX_SLICES
 from ..wire import (
-    _COEFF_FIELDS, _COEFF_SHAPES, _IDENTITY_WTAB, _TORCH_DTYPES, _WTAB_COLS,
-    _offsets, unpack_wire_plain, wire_total,
+    _COEFF_FIELDS, _COEFF_SHAPES, _IDENTITY_WTAB, _WTAB_COLS, _offsets,
+    unpack_wire_plain, wire_total,
 )
 from ..transforms import device_copy
 from . import LAUNCHES, build, cuda_device
-from .unpack_bm8 import unpack_bm8
+from . import unpack_bm8 as k8
 
 # csrc/unpack_wire.cu's `enum Op`, in order
 OPS = ("kind", "qp", "slice_id", "tr8", "mb_avail", "i16_mode",
@@ -97,8 +97,9 @@ class Plan(NamedTuple):
     bytes a lane; `slice8`, its slice table's offset; `split`, the sizes
     that cut the allocation into the outputs' regions and their padding,
     and `pieces`, each output's index among them (None: not K12's);
-    `bm8`, each bm8 class's (key, its idx, bm and val sections as
-    (offset, bytes, dtype, shape), grid, w)."""
+    `bm8`, each bm8 class's (key, its piece, and its layout for K8: the
+    byte offsets of its idx, bm and val sections in a lane, br, bv, grid,
+    w, and its word offset in the allocation), after K12's regions."""
     outputs: tuple
     segs: np.ndarray
     n1: int
@@ -232,22 +233,38 @@ def plan(spec, n: int, B: int) -> Plan:
         split.append(B * int(np.prod(shape)))
         at_end = at + split[-1]
     split.append(words - at_end)
-    bm8 = tuple(
-        (name, tuple((table[f + sfx][0],
-                     int(np.prod(table[f + sfx][2])) *
-                     np.dtype(table[f + sfx][1]).itemsize,
-                     _TORCH_DTYPES[np.dtype(table[f + sfx][1])],
-                     (B,) + table[f + sfx][2])
-                    for sfx in ("_idx", "_bm", "_val")), n * cpm, w)
-        for f, name, cpm, w in _COEFF_FIELDS if sd[f][0] == "bm8")
+    bm8 = []
+    for f, name, cpm, w in _COEFF_FIELDS:
+        if sd[f][0] == "bm8":
+            br, bv = sd[f][1]
+            bm8.append((name, len(split), (
+                table[f + "_idx"][0], table[f + "_bm"][0],
+                table[f + "_val"][0], br, bv, n * cpm, w, words)))
+            split.append(B * n * cpm * w)        # a multiple of 4
+            words += split[-1]
     return Plan(tuple(outputs), segs, n1, *blocks, words, total,
-                sec("slice8")[0], tuple(split), tuple(pieces), bm8)
+                sec("slice8")[0], tuple(split), tuple(pieces), tuple(bm8))
+
+
+@functools.lru_cache(maxsize=64)
+def bm8_table(spec, n: int, B: int, stride: int) -> k8.Table:
+    """K8's table of the bm8 classes of `plan(spec, n, B)`, for B lanes
+    `stride` bytes apart in the wire buffer."""
+    return k8.class_table([(i, b, v, stride, stride, stride, *rest)
+                           for _, _, (i, b, v, *rest) in
+                           plan(spec, n, B).bm8], B)
 
 
 def device_launches(spec, n: int) -> int:
     """Kernels one call on this spec puts on the card: launch 1, and
     launch 2 where a section ships sparse rows (K8's not counted)."""
     return 1 + (plan(spec, n, 1).blocks2 > 0)
+
+
+def bm8_launches(spec, n: int) -> int:
+    """K8's kernels one unpack_wire call on this spec puts on the card:
+    none without a bm8 class, else its scan and its expansion."""
+    return k8.device_launches(bm8_table(spec, n, 1, 0))
 
 
 def bm8_keys(spec) -> set:
@@ -257,17 +274,9 @@ def bm8_keys(spec) -> set:
     return {key for f, key, _, _ in _COEFF_FIELDS if sd[f] == "bm8"}
 
 
-def unpack_wire(buf, mb_w: int, mb_h: int, spec, bm8: bool = True) -> dict:
-    """ops/wire.py::unpack_wire_plain: wire buffers buf [B, total] uint8
-    (one lane a row, rows may lie apart) laid out per `spec` -> the dense
-    ABI dict [B, ...] int32.  On a CUDA device K12 and K8 (one call a bm8
-    class), on the CPU the plain version.  bm8=False leaves the bm8
-    classes out (K12 alone)."""
-    dev = cuda_device(buf)
-    if dev is None:
-        out = unpack_wire_plain(buf, mb_w, mb_h, spec)
-        return {k: v for k, v in out.items()
-                if bm8 or k not in bm8_keys(spec)}
+def _checked(buf, mb_w: int, mb_h: int, spec):
+    """(buf's plan) after checking that buf is a [B, total] uint8 wire
+    buffer on the card that the kernels take; raise otherwise."""
     if buf.dtype != torch.uint8:
         raise TypeError(f"unpack_wire: buffer dtype {buf.dtype}, expected "
                         "torch.uint8")
@@ -283,6 +292,50 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec, bm8: bool = True) -> dict:
                          f"address {buf.data_ptr()}: a lane's bytes must "
                          "be contiguous, lanes and the address 4-byte "
                          "aligned")
+    return p
+
+
+def _expand_bm8(buf, out, regions, n: int, spec, p) -> dict:
+    """K8's one call over every bm8 class of the round, into their
+    regions of `out` (`regions`: out split per plan p) -> {key: [B, ...]
+    view}."""
+    B = buf.shape[0]
+    if p.bm8:
+        k8.launch(buf.data_ptr(), out, bm8_table(spec, n, B, buf.stride(0)),
+                  B, buf.device)
+    shapes = {name: shape for name, shape, _ in p.outputs}
+    return {name: regions[piece].view((B,) + shapes[name])
+            for name, piece, _ in p.bm8}
+
+
+def unpack_bm8_round(buf, mb_w: int, mb_h: int, spec) -> dict:
+    """The bm8 classes of unpack_wire's dict alone: on a CUDA device K8's
+    one call (in an allocation laid out as unpack_wire's), on the CPU the
+    plain version."""
+    if cuda_device(buf) is None:
+        keys = bm8_keys(spec)
+        return {k: v for k, v in unpack_wire_plain(buf, mb_w, mb_h,
+                                                   spec).items()
+                if k in keys}
+    p = _checked(buf, mb_w, mb_h, spec)
+    out = torch.empty(p.words, dtype=torch.int32, device=buf.device)
+    return _expand_bm8(buf, out, out.split(p.split), mb_w * mb_h, spec, p)
+
+
+def unpack_wire(buf, mb_w: int, mb_h: int, spec, bm8: bool = True) -> dict:
+    """ops/wire.py::unpack_wire_plain: wire buffers buf [B, total] uint8
+    (one lane a row, rows may lie apart) laid out per `spec` -> the dense
+    ABI dict [B, ...] int32.  On a CUDA device K12 and, where the round
+    ships a bm8 class, one call of K8 for all of them, both writing into
+    one allocation; on the CPU the plain version.  bm8=False leaves the
+    bm8 classes out (K12 alone)."""
+    dev = cuda_device(buf)
+    if dev is None:
+        out = unpack_wire_plain(buf, mb_w, mb_h, spec)
+        return {k: v for k, v in out.items()
+                if bm8 or k not in bm8_keys(spec)}
+    p = _checked(buf, mb_w, mb_h, spec)
+    B = buf.shape[0]
     out = torch.empty(p.words, dtype=torch.int32, device=dev)
     fn = build.function("unpack_wire_launch", 3, 7)
     with torch.cuda.device(dev):
@@ -292,7 +345,8 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec, bm8: bool = True) -> dict:
     build.check("unpack_wire_launch", err)
     LAUNCHES["unpack_wire"] += 1
     regions = out.split(p.split)
-    bm8s = iter(p.bm8)
+    classes = _expand_bm8(buf, out, regions, mb_w * mb_h, spec, p) \
+        if bm8 else {}
     result = {}
     for (name, shape, _), piece in zip(p.outputs, p.pieces):
         if piece is not None:
@@ -301,11 +355,6 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec, bm8: bool = True) -> dict:
             # no lane ships a row: the cached identity, lane stride 0
             result[name] = device_copy(_IDENTITY_WTAB, dev).expand(
                 (B,) + shape)
-        else:
-            _, secs, grid, w = next(bm8s)
-            if bm8:
-                result[name] = unpack_bm8(*(
-                    buf[:, off:off + nbytes].view(dt).view(full)
-                    for off, nbytes, dt, full in secs), grid, w).view(
-                        (B,) + shape)
+        elif bm8:
+            result[name] = classes[name]
     return result

@@ -863,9 +863,10 @@ def unpack_wire(buf, mb_w: int, mb_h: int, spec) -> dict:
     """Wire buffers buf [B, total] uint8 (one lane a row, laid out per
     `spec`) -> dict of the dense ABI's [B, ...] int32 tensors on buf's
     device, as decode_frames_batch_fn takes them: unpack_wire_plain for a
-    CPU buffer; for a CUDA buffer kernel K12 and, for each coefficient
-    class shipped as bm8, K8 (ops/kernels/unpack_wire.py), which raise on
-    a buffer they do not take."""
+    CPU buffer; for a CUDA buffer kernel K12 and, where coefficient
+    classes ship as bm8, one call of K8 for all of them
+    (ops/kernels/unpack_wire.py), which raise on a buffer they do not
+    take."""
     # imported here: the wrapper module imports this one
     from .kernels.unpack_wire import unpack_wire as unpack_wire_kernel
     return unpack_wire_kernel(buf, mb_w, mb_h, spec)
@@ -884,7 +885,7 @@ def unpack_wire_plain(buf, mb_w: int, mb_h: int, spec) -> dict:
     (the slot MC reads).
 
     Each coefficient class shipped as bm8 is expanded by kernel K8
-    (ops/kernels/unpack_bm8.py, one wrapper call a class) on a CUDA
+    (ops/kernels/unpack_bm8.py, its one-class form a class) on a CUDA
     device, by _scatter_bm8 on the CPU."""
     # imported here: the wrapper module imports this one (_scatter_bm8)
     from .kernels.unpack_bm8 import unpack_bm8

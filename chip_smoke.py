@@ -22,7 +22,9 @@ Phases (each prints a line; any failure exits non-zero):
               torch.equal to ops/wire.py::_scatter_bm8 for every bm8
               class of the smoke stream's pictures (each alone, and
               pictures 1-4 as four lanes) and of the uhd lanes (conf_c5
-              picture 1 alone and as four lanes), timed on the l4 class;
+              picture 1 alone and as four lanes), from its one call for
+              all of a round's classes (unpack_bm8_round) and from its
+              one-class form, timed on the round's call;
               K9 (residual), K10 (inter_combine) and K11 (store_refs),
               the three stages on every picture's path that the
               reference computes in XLA: K9 torch.equal to
@@ -56,7 +58,7 @@ Phases (each prints a line; any failure exits non-zero):
               beside its byte bound;
               each kernel's device launches in one wrapper call, counted
               by torch.profiler after phase 10 (every kernel must launch
-              once per call, K8 its DEVICE_LAUNCHES, 3, K12 one, two
+              once per call, K8 its DEVICE_LAUNCHES, 2, K12 one, two
               where a section ships sparse rows)
   4. wavefront  K1, K2 and the row-pipelined K5, K6 50 times each on one
               1080p input, every output equal to the plain version; all
@@ -160,8 +162,9 @@ Phases (each prints a line; any failure exits non-zero):
               upload in turns (wire, dense, dense, wire), with the main
               thread's upload ms a round; and after the profiler session
               at the end, one unpack_wire call at B = 1, 8 and 32: its
-              device launches (DEVICE_LAUNCHES of K8 a bm8 class and
-              K12's, no other kernel) and their summed device ms; (d)
+              device launches (K8's one call for the round's bm8 classes,
+              two kernels, and K12's, no other kernel, at most
+              MAX_UNPACK_LAUNCHES, 4) and their summed device ms; (d)
               BatchDecoder(8, mesh=("cuda:0",) * 2) over the four 1080p
               streams with each order: MD5-exact, the order's intra and
               deblock kernels
@@ -196,7 +199,7 @@ Phases (each prints a line; any failure exits non-zero):
               mb_w (an estimate, not a floor; log lines only).
 In phases 6-11 every decode also launches K7 and K9 once a picture (a
 round; twice a round with two shards), K10 with K3/K4, K12 once a wire
-upload and K8 once for each coefficient class that a wire upload ships
+upload and K8 once for each wire upload that ships a coefficient class
 as bm8 (neither on a dense round) and K11 once for each reference store
 with a storing lane (tools/gpu_conformance.py bm8_tally counts them from
 the calls of unpack_wire and store_refs_fn).
@@ -241,8 +244,10 @@ kernel's order (3 rounds, 2 with an inter lane).  `ms_2160p` and
 on synthetic_abi, K3/K4 on synthetic_abi_p over 4 random references).
 K7 and K8 also get `ms_b4`, `ms_2160p`, `ms_b4_2160p`, the bound and
 the plain version's ms of each (`bound_ms_*`, `plain_ms_*`): K7 on
-synthetic_abi_p, K8 on the l4 class of smoke pictures 1-4 as four
-lanes, of conf_c5's picture 1 and of the uhd round of four.  K9, K10
+synthetic_abi_p, K8 on all bm8 classes of the wire rounds of smoke
+pictures 1-4 as four lanes, of conf_c5's picture 1 and of the uhd round
+of four (its `ms` smoke picture 1's round; each bound sums bm8_need over
+the round's classes).  K9, K10
 and K11 get the same keys: K9 on the wire rounds above (smoke picture 1,
 pictures 1-4, conf_c5 picture 1, the uhd round), K10 on the smoke
 stream's B picture's wire upload (`ms`: the per-slice table lookup the
@@ -319,6 +324,7 @@ REPEATS = 50                   # exactness loop of the wavefront kernels
 B4 = 4                         # streams of the batched wavefront case
 B8 = 8                         # streams of the batched MC case
 WIRE_BATCHES = (1, 8, 32)      # lanes of the wire phase's upload timings
+MAX_UNPACK_LAUNCHES = 4        # device launches of one unpack_wire call
 SHARDS = 2                     # shards on the one card of the wire phase
 CONF_CONFIGS = (1, 2, 3, 4, 5, 6)   # the conformance phase's configs
 CONF_BATCH = 4                 # lanes of the 4K BatchDecoder
@@ -682,14 +688,18 @@ def tables_and_wire(record, results: dict, smi: str) -> int:
     )
     from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import unpack_bm8
     from arrow_h264_tpu_torch.ops.kernels.unpack_wire import (
-        device_launches as k12_launches, unpack_wire as unpack_wire_k12,
+        device_launches as k12_launches, unpack_bm8_round,
+        unpack_wire as unpack_wire_k12,
     )
     from arrow_h264_tpu_torch.ops.synthetic import (
         WIRE_CASES, forced_wire_round, random_deblock_abi, synthetic_batch,
     )
-    from arrow_h264_tpu_torch.ops.wire import _scatter_bm8, unpack_wire_plain
+    from arrow_h264_tpu_torch.ops.wire import (
+        _COEFF_FIELDS, _scatter_bm8, unpack_wire_plain,
+    )
     dev = torch.device("cuda")
     cqp = (2, -3)
+    key = {f: k for f, k, *_ in _COEFF_FIELDS}     # class -> ABI key
     k7 = ("deblock_tables", "deblock_tables (K7)",
           "arrow_h264_tpu_torch/csrc/deblock_tables.cu",
           "arrow_h264_tpu/ops/deblock.py:354 (XLA; no pallas_call)")
@@ -789,35 +799,46 @@ def tables_and_wire(record, results: dict, smi: str) -> int:
     for what, abis, mb_w, mb_h, tag in rounds:
         buf, spec, classes = wire_round(abis, mb_w, mb_h, dev)
         unpack_round(what, buf, mb_w, mb_h, spec, tag)
+        # K8's one call over the round's bm8 classes, then its one-class
+        # form on each class
+        got = unpack_bm8_round(buf, mb_w, mb_h, spec)
+        torch.cuda.synchronize()
+        if set(got) != {key[f] for f, *_ in classes}:
+            sys.exit(f"unpack_bm8 {what}: classes {sorted(got)}, expected "
+                     f"{sorted(key[f] for f, *_ in classes)}")
+        err = 0
         for f, idx, bm, vals, grid, w in classes:
             want = _scatter_bm8(idx, bm, vals, grid, w)
-            got = unpack_bm8(idx, bm, vals, grid, w)
-            torch.cuda.synchronize()
-            err = compare(f"unpack_bm8 {what} {f}", got, want)
+            err = max(err, compare(f"unpack_bm8 {what} {f} (round)",
+                                   got[key[f]].view(want.shape), want))
+            compare(f"unpack_bm8 {what} {f}",
+                    unpack_bm8(idx, bm, vals, grid, w), want)
             checked += 1
-            if f != "l4" or tag is None:
-                continue
-            call = partial(unpack_bm8, idx, bm, vals, grid, w)
-            ms = kernel_ms(call)
-            plain = cuda_ms(partial(_scatter_bm8, idx, bm, vals, grid, w),
-                            KERNEL_REPS)
-            need = bm8_need(idx, bm, vals, got)
-            if not tag:
-                record(*k8, err, ms, plain, need, f"{what} l4", call)
-            else:
-                results["unpack_bm8"].update(
-                    {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
-                     f"plain_ms{tag}": plain})
-                log("kernels", f"{k8[1]} {what} l4: equal, kernel {ms:.4f} "
-                    f"ms, plain {plain:.4f} ms, bound {bound(*need)[0]:.4f}"
-                    " ms")
+        if tag is None or not classes:
+            continue
+        call = partial(unpack_bm8_round, buf, mb_w, mb_h, spec)
+        ms = kernel_ms(call)
+        plain = cuda_ms(lambda: [_scatter_bm8(*c[1:]) for c in classes],
+                        KERNEL_REPS)
+        need = [sum(x) for x in zip(*(bm8_need(idx, bm, vals, got[key[f]])
+                                      for f, idx, bm, vals, _, _ in
+                                      classes))]
+        note = f"{what}, its {len(classes)} bm8 classes"
+        if not tag:
+            record(*k8, err, ms, plain, need, note, call)
+        else:
+            results["unpack_bm8"].update(
+                {f"ms{tag}": ms, f"bound_ms{tag}": bound(*need)[0],
+                 f"plain_ms{tag}": plain})
+            log("kernels", f"{k8[1]} {note}: equal, kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bound(*need)[0]:.4f} ms")
     del smoke, uhd
     if "unpack_bm8" not in results:
-        sys.exit("unpack_bm8: the smoke stream's picture 1 shipped no l4 "
-                 "class as bm8")
+        sys.exit("unpack_bm8: the smoke stream's picture 1 shipped no class "
+                 "as bm8")
     log("kernels", f"{k8[1]}: {checked} bm8 classes of the smoke stream's "
-        f"and the uhd lanes' wire rounds torch.equal to the plain "
-        f"version; on {smi}")
+        f"and the uhd lanes' wire rounds torch.equal to the plain version, "
+        f"from the round's one call and from the one-class form; on {smi}")
 
     # K12 also on the rounds of a feature stream that ships I_PCM and one
     # that ships weight-table rows (each picture alone, then all of them
@@ -1252,8 +1273,8 @@ def batch_phase(paths: dict, smi: str) -> dict:
                 or not 0 < tally["stores"] <= bd.rounds:
             sys.exit(f"{what}: launches {got}, expected {want} (one a round; "
                      f"{bd.rounds} rounds, {bd.inter_rounds} with an inter "
-                     f"lane; unpack_bm8 once a bm8 class of the "
-                     f"{tally['unpacks']} wire rounds)")
+                     f"lane; unpack_bm8 once a wire round of the "
+                     f"{tally['unpacks']} that ships a bm8 class)")
         if bd.rounds != max(len(golden[i % len(data)]) for i in range(n)
                             if i != corrupt):
             sys.exit(f"{what}: {bd.rounds} rounds")
@@ -1390,8 +1411,8 @@ def fields_phase(paths: dict, smi: str) -> dict:
                 sys.exit(f"fields {p.name} {order}: launches {got}, "
                          f"expected {want(order, fields, inter, tally)} (a "
                          f"field picture each; K3/K4 for {inter} P/B "
-                         "fields; unpack_bm8 once a bm8 class of a wire "
-                         "upload)")
+                         "fields; unpack_bm8 once a wire upload that "
+                         "ships a bm8 class)")
             frames += len(md5)
             wall += wall_s
             log("fields", f"{p.name} order={order}: {len(md5)} frames "
@@ -1492,8 +1513,8 @@ def features_phase(paths: dict, smi: str) -> dict:
                 sys.exit(f"features {name} {order}: launches {got}, "
                          f"expected {w} (a picture each; K3/K4 for the "
                          f"{m['mc_pictures']} with inter MBs; unpack_bm8 "
-                         f"once a bm8 class of the {tally['unpacks']} wire "
-                         "uploads)")
+                         f"once a wire upload of the {tally['unpacks']} "
+                         "that ships a bm8 class)")
             if "concealed" in m and \
                     [list(c) for c in dec.concealed] != m["concealed"]:
                 sys.exit(f"features {name} {order}: concealed "
@@ -1629,9 +1650,8 @@ def check_abi(what: str, got: dict, want: dict) -> None:
 
 def wire_phase(paths: dict, smi: str) -> tuple[dict, dict]:
     """The wire phase (module docstring); returns ({"unpack_wire B=...":
-    one call of unpack_wire on the card at that B}, {the same name: (the
-    bm8 classes the call expands, K8 calls; K12's device launches)}) for
-    the profiler session."""
+    one call of unpack_wire on the card at that B}, {the same name: (K8's
+    device launches in the call, K12's)}) for the profiler session."""
     from arrow_h264_tpu_torch.api import Decoder
     from arrow_h264_tpu_torch.models.pipeline import (
         ABI_DEVICE_KEYS, upload_batch, upload_nbytes, upload_wire,
@@ -1639,7 +1659,7 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, dict]:
     )
     from arrow_h264_tpu_torch.ops import kernels
     from arrow_h264_tpu_torch.ops.kernels.unpack_wire import (
-        device_launches as k12_launches,
+        bm8_launches, device_launches as k12_launches,
     )
     from arrow_h264_tpu_torch.ops.transforms import COEFF_KEYS
     from arrow_h264_tpu_torch.ops.wire import (
@@ -1707,8 +1727,7 @@ def wire_phase(paths: dict, smi: str) -> tuple[dict, dict]:
         unpack_ms = cuda_ms(call, KERNEL_REPS, ROUNDS)
         regions[f"unpack_wire B={B}"] = call
         region_launches[f"unpack_wire B={B}"] = (
-            sum(sch == "bm8" for _, sch, _ in target),
-            k12_launches(target, n))
+            bm8_launches(target, n), k12_launches(target, n))
         staged = [torch.from_numpy(np.stack(
             [np.asarray(a[k]) for a in abis]).astype(np.int32)).pin_memory()
             for k in ABI_DEVICE_KEYS
@@ -2501,8 +2520,7 @@ def main() -> None:
     counted = device_launches(calls, regions)
     # the unpack_wire regions' K8 and K12 calls put their kernels in the
     # same session, under the same names
-    counted["unpack_bm8"] -= DEVICE_LAUNCHES * sum(
-        b for b, _ in region_launches.values())
+    counted["unpack_bm8"] -= sum(b for b, _ in region_launches.values())
     counted["unpack_wire"] -= sum(k for _, k in region_launches.values())
     for key in results:
         n_dev = results[key]["device_launches"] = counted[key]
@@ -2516,15 +2534,15 @@ def main() -> None:
         k, ms, names = counted[name]
         bm8, k12 = region_launches[name]
         log("wire", f"{name} (round 1 of lanes cycling the four streams): "
-            f"{k} device launches per call ({DEVICE_LAUNCHES} x {bm8} bm8 "
-            f"classes, K8, + {k12}, K12), {ms:.4f} ms of kernel time summed "
-            f"(torch.profiler); on {smi}")
-        if k != DEVICE_LAUNCHES * bm8 + k12 or not all(
+            f"{k} device launches per call ({bm8}, K8's one call for the "
+            f"round's bm8 classes, + {k12}, K12), {ms:.4f} ms of kernel time "
+            f"summed (torch.profiler); on {smi}")
+        if k != bm8 + k12 or k > MAX_UNPACK_LAUNCHES or not all(
                 "unpack_bm8_kernel" in s or "unpack_wire_kernel" in s
                 for s in names):
             sys.exit(f"{name}: {k} device launches {sorted(names)}, "
-                     f"expected only K8's ({DEVICE_LAUNCHES} x {bm8}) and "
-                     f"K12's ({k12})")
+                     f"expected only K8's ({bm8}) and K12's ({k12}), at most "
+                     f"{MAX_UNPACK_LAUNCHES}")
 
     if "jax" in sys.modules or any(m.split(".")[0] == "arrow_h264_tpu"
                                    for m in sys.modules):

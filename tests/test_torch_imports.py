@@ -99,6 +99,7 @@ def test_cli_help_imports_no_jax():
                                     "tools/mc_bench.py",
                                     "tools/tables_wire_bench.py",
                                     "tools/stage_bench.py",
+                                    "tools/stage_probe.py",
                                     "tools/gpu_conformance.py",
                                     "tools/conformance_streams.py"])
 def test_scripts_import_only_the_port(script):

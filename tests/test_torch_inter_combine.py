@@ -1,10 +1,15 @@
 """K10, the inter combine kernel (csrc/inter_combine.cu), on the CPU.
 
 `thread_program` is a model of the kernel in Python: one thread a 4x4
-luma cell (and the 2x2 chroma cells under it), in the kernel's order,
-with its flat index arithmetic, its weight lookup (the per-slice tables
-at slice_id and the clamped refidx, with a lane stride of 0 for a table
-shared by every lane, or the dense wp/logwd) and its combine.  It must
+luma cell (and the 2x2 chroma cells under it), in the kernel's order
+(kThreads parsed from the .cu), with its flat index arithmetic, the MB's
+fields read by the first of its four threads and shuffled to the others,
+its weight lookup (three 16-byte loads of the per-slice table's entry at
+slice_id and the clamped refidx, with a lane stride of 0 for a table
+shared by every lane, or of the dense wp; the logwd pair at slice_id or
+the MB) and its combine, every access of the width and alignment the
+kernel's (a row of a cell one load of each list, one residual load, one
+store).  It must
 equal the port's plain ops/inter.py::inter_init_plain, which must equal
 the JAX package's `_mc_combine` followed by `_post_mc`'s residual add and
 clip (arrow_h264_tpu/models/pipeline.py, with its own residual planes of
@@ -14,6 +19,8 @@ wp.  Every comparison is exact (atol 0).
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +41,9 @@ from arrow_h264_tpu_torch.ops.synthetic import random_weighted_abi
 from tests.torch_ref import FLAT4, FLAT8, assert_same
 
 GRIDS = [(4, 3), (5, 2), (1, 1)]
+CU = (Path(ti.__file__).resolve().parents[1] / "csrc" /
+      "inter_combine.cu").read_text()
+THREADS = int(re.search(r"constexpr int kThreads = (\d+);", CU)[1])
 RES_KEYS = ("luma4", "luma_dc", "chroma_dc", "chroma_ac")
 
 
@@ -51,76 +61,138 @@ def _combine(p0, p1, w, lw, both, only1):
                  else p * ww + o)
 
 
+class Memory:
+    """A tensor's bytes as the kernel addresses them: every access is of
+    1, 2, 4, 8 or 16 bytes at a byte offset that is a multiple of its
+    size (the wrapper checks the tensors' own alignment), counted in
+    `log` by kind and size; a store writes each word once."""
+
+    def __init__(self, arr, log: dict, out: bool = False):
+        self.words = np.full(arr.size, -1, np.int64) if out else None
+        self.bytes = None if out else np.ascontiguousarray(arr).view(
+            np.uint8).reshape(-1)
+        self.log = log
+
+    def load(self, off: int, nbytes: int, dtype):
+        assert off % nbytes == 0, (off, nbytes)
+        self.log[f"load{nbytes}"] = self.log.get(f"load{nbytes}", 0) + 1
+        return self.bytes[off:off + nbytes].view(dtype).astype(np.int64)
+
+    def store(self, word: int, values):
+        nbytes = 4 * len(values)
+        assert (4 * word) % nbytes == 0, (word, nbytes)
+        self.log[f"store{nbytes}"] = self.log.get(f"store{nbytes}", 0) + 1
+        assert (self.words[word:word + len(values)] == -1).all()
+        self.words[word:word + len(values)] = values
+
+
 def thread_program(abi: dict, pred_y, pred_c, res, mb_w: int, mb_h: int,
-                   shared_wtab: bool = False):
+                   shared_wtab: bool = False, log: dict | None = None):
     """inter_combine_kernel, thread by thread: numpy inputs -> (init_y,
-    init_cb, init_cr) int64 numpy.  shared_wtab: every lane reads lane
-    0's weight table (a lane stride of 0)."""
-    f = {k: np.asarray(v).reshape(-1).astype(np.int64).tolist()
-         for k, v in abi.items()}
-    py = np.asarray(pred_y).reshape(-1).tolist()
-    pc = np.asarray(pred_c).reshape(-1).tolist()
-    ry, rcb, rcr = (np.asarray(r).reshape(-1).tolist() for r in res)
+    init_cb, init_cr) int64 numpy.  A thread a 4x4 cell (a block of
+    kThreads, the threads past the end standing in for cell 0 until the
+    warp's shuffles are done): the first of an MB row's four threads
+    reads kind, slice_id and the logwd pair (slogwd at slice_id, or the
+    dense logwd) and the others take them from it, while each reads its
+    cell's refslot and refidx pairs (8-byte loads); an inter cell's
+    weights are three 16-byte loads; each
+    luma row a 4-byte load of each list it reads, a 16-byte residual load
+    and a 16-byte store, each chroma row 2-byte, 8-byte and 8-byte ones.
+    shared_wtab: every lane reads lane 0's weight table (a lane stride of
+    0).  log (if given) counts the accesses by kind and size."""
+    log = {} if log is None else log
+    m = {k: Memory(np.asarray(v), log) for k, v in abi.items()}
+    py, pc = Memory(pred_y, log), Memory(pred_c, log)
+    ry, rcb, rcr = (Memory(r, log) for r in res)
     B = np.asarray(pred_y).shape[0]
     n = mb_w * mb_h
     H, W = 16 * mb_h, 16 * mb_w
     Hc, Wc = H // 2, W // 2
     cw, ch = 4 * mb_w, 4 * mb_h
+    out_y = Memory(np.zeros(B * H * W), log, out=True)
+    out_c = [Memory(np.zeros(B * Hc * Wc), log, out=True) for _ in "cc"]
     dense = "wp" in abi or "wtab" not in abi
     stride = 0 if shared_wtab else 16 * 33 * 33 * 12
-    out_y = np.full(B * H * W, -1, np.int64)
-    out_c = [np.full(B * Hc * Wc, -1, np.int64) for _ in "cc"]
-    for t in range(B * ch * cw):
-        cx, cy, b = t % cw, (t // cw) % ch, t // (cw * ch)
+    total = B * ch * cw
+
+    def cell_of(t):
+        tc = t if t < total else 0
+        cx, cy, b = tc % cw, (tc // cw) % ch, tc // (cw * ch)
         mb = b * n + (cy >> 2) * mb_w + (cx >> 2)
-        cell = mb * 16 + (cy & 3) * 4 + (cx & 3)
+        return cx, cy, b, mb, mb * 16 + (cy & 3) * 4 + (cx & 3)
+
+    def i32(k, word, count):
+        return m[k].load(4 * word, 4 * count, np.int32)
+
+    threads = -(-total // THREADS) * THREADS
+    for t in range(threads):
+        cx, cy, b, mb, cell = cell_of(t)
+        # the MB row's first thread (lanes 4k..4k+3 of the same warp)
+        lead = t - (t & 3)
+        assert lead // 32 == t // 32
+        _, _, lb, lmb, _ = cell_of(lead)
+        assert t >= total or lmb == mb
+        kind, = i32("kind", lmb, 1)
+        if dense:
+            sid, lw = 0, tuple(i32("logwd", lmb * 2, 2))
+        else:
+            sid, = i32("slice_id", lmb, 1)
+            lw = tuple(i32("slogwd", (lb * 16 + sid) * 2, 2))
+        # each thread's pair of lists (and of refidx), before the shuffles
+        slot = i32("refslot", cell * 2, 2)
+        ri = None if dense else i32("refidx", cell * 2, 2)
+        if t >= total:
+            continue
         yo = (b * H + cy * 4) * W + cx * 4
         co = (b * Hc + cy * 2) * Wc + cx * 2
-        if f["kind"][mb] < 4:
+        if kind < 4:
             for r in range(4):
-                for x in range(4):
-                    out_y[yo + r * W + x] = 0
+                out_y.store(yo + r * W, [0] * 4)
             for r in range(2):
-                for x in range(2):
-                    out_c[0][co + r * Wc + x] = out_c[1][co + r * Wc + x] = 0
+                for o in out_c:
+                    o.store(co + r * Wc, [0] * 2)
             continue
-        u0, u1 = f["refslot"][cell * 2] >= 0, f["refslot"][cell * 2 + 1] >= 0
+        # an inter cell's other loads, all before its first store
+        res_y = [ry.load(4 * (yo + r * W), 16, np.int32) for r in range(4)]
+        res_c = [[rc.load(4 * (co + r * Wc), 8, np.int32) for r in range(2)]
+                 for rc in (rcb, rcr)]
+        u0, u1 = slot[0] >= 0, slot[1] >= 0
         both, only1 = u0 and u1, not u0
+        read0, read1 = not only1, u1 or only1
         if dense:
-            p = cell * 12
-            w = [(f["wp"][p + pl * 2], f["wp"][p + pl * 2 + 1],
-                  f["wp"][p + 6 + pl * 2], f["wp"][p + 6 + pl * 2 + 1])
+            q = np.concatenate([i32("wp", cell * 12 + 4 * i, 4)
+                                for i in range(3)])
+            w = [(q[2 * pl], q[2 * pl + 1], q[6 + 2 * pl], q[7 + 2 * pl])
                  for pl in range(3)]
-            lw = (f["logwd"][mb * 2], f["logwd"][mb * 2 + 1])
         else:
-            sid = f["slice_id"][mb]
-            r0 = min(max(f["refidx"][cell * 2], -1), 31) + 1
-            r1 = min(max(f["refidx"][cell * 2 + 1], -1), 31) + 1
-            p = b * stride + ((sid * 33 + r0) * 33 + r1) * 12
-            w = [tuple(f["wtab"][p + pl * 4 + i] for i in range(4))
-                 for pl in range(3)]
-            lw = (f["slogwd"][(b * 16 + sid) * 2],
-                  f["slogwd"][(b * 16 + sid) * 2 + 1])
+            r0, r1 = (min(max(v, -1), 31) + 1 for v in ri)
+            e = b * stride + ((sid * 33 + r0) * 33 + r1) * 12
+            q = np.concatenate([i32("wtab", e + 4 * i, 4) for i in range(3)])
+            w = [tuple(q[4 * pl:4 * pl + 4]) for pl in range(3)]
         plane = H * W
         for r in range(4):
-            for x in range(4):
-                o = (cy * 4 + r) * W + cx * 4 + x
-                v = _combine(py[b * 2 * plane + o],
-                             py[b * 2 * plane + plane + o], w[0], lw[0],
-                             both, only1)
-                out_y[yo + r * W + x] = _clip(v + ry[yo + r * W + x])
+            o = b * 2 * plane + (cy * 4 + r) * W + cx * 4
+            p0 = py.load(o, 4, np.uint8) if read0 else [0] * 4
+            p1 = py.load(plane + o, 4, np.uint8) if read1 else [0] * 4
+            out_y.store(yo + r * W, [
+                _clip(_combine(p0[x], p1[x], w[0], lw[0], both, only1)
+                      + res_y[r][x]) for x in range(4)])
         plane = Hc * Wc
-        for pl, rc in enumerate((rcb, rcr)):
+        for pl, oc in enumerate(out_c):
             for r in range(2):
-                for x in range(2):
-                    o = (cy * 2 + r) * Wc + cx * 2 + x
-                    v = _combine(pc[b * 4 * plane + pl * plane + o],
-                                 pc[b * 4 * plane + (2 + pl) * plane + o],
-                                 w[1 + pl], lw[1], both, only1)
-                    out_c[pl][co + r * Wc + x] = \
-                        _clip(v + rc[co + r * Wc + x])
-    return (out_y.reshape(B, H, W),
-            *(c.reshape(B, Hc, Wc) for c in out_c))
+                o = b * 4 * plane + (cy * 2 + r) * Wc + cx * 2
+                p0 = pc.load(pl * plane + o, 2, np.uint8) if read0 \
+                    else [0] * 2
+                p1 = pc.load((2 + pl) * plane + o, 2, np.uint8) if read1 \
+                    else [0] * 2
+                oc.store(co + r * Wc, [
+                    _clip(_combine(p0[x], p1[x], w[1 + pl], lw[1], both,
+                                   only1) + res_c[pl][r][x])
+                    for x in range(2)])
+    assert (out_y.words >= 0).all() and all((o.words >= 0).all()
+                                            for o in out_c)
+    return (out_y.words.reshape(B, H, W),
+            *(o.words.reshape(B, Hc, Wc) for o in out_c))
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,9 +246,14 @@ def _check(abi, pred_y, pred_c, mb_w, mb_h, shared_wtab=False):
     before = dict(LAUNCHES)
     wrapped = inter_combine(ta, tpy, tpc, *res, mb_w, mb_h)
     assert LAUNCHES == before                 # CPU tensors: plain version
-    model_abi = dict(abi)
-    got = thread_program(model_abi, pred_y, pred_c,
-                         [r.numpy() for r in res], mb_w, mb_h, shared_wtab)
+    log = {}
+    got = thread_program(abi, pred_y, pred_c, [r.numpy() for r in res],
+                         mb_w, mb_h, shared_wtab, log)
+    cells = abi["kind"].size * 16
+    # every row of a cell one store: 16 bytes luma, 8 bytes chroma
+    assert {k: v for k, v in log.items() if k.startswith("store")} == \
+        {"store16": 4 * cells, "store8": 4 * cells}
+    assert "load1" not in log
     for g, p, w, name in zip(got, plain, wrapped, ("y", "cb", "cr")):
         assert p.dtype == w.dtype == torch.int32
         assert torch.equal(w, p), name

@@ -38,6 +38,8 @@ from arrow_h264_tpu_torch.ops.kernels.residual import (
     CLASS_SHAPES, residual_planes as residual_k9,
 )
 from arrow_h264_tpu_torch.ops.kernels.store_ref import store_refs
+from arrow_h264_tpu_torch.ops.kernels import unpack_bm8 as k8
+from arrow_h264_tpu_torch.ops.kernels import unpack_wire as k12
 from arrow_h264_tpu_torch.ops.kernels.unpack_bm8 import (
     DEVICE_LAUNCHES, unpack_bm8,
 )
@@ -345,6 +347,97 @@ def test_unpack_bm8_kernel(dev, w, br, grid, B, strided):
     assert torch.equal(got, want)
 
 
+def _bm8_classes(specs, B, seed, dev):
+    """The classes of `specs` ((w, rows, dense rows, what) each; what:
+    "sorted", "unsorted" or "clamped") as _bm8_case makes them, laid out
+    in one [B, total] byte buffer on the card (each lane's sections at
+    4-byte aligned offsets, lanes a row stride apart that is 4 bytes off
+    16) -> (buffer, class_table entries with the outputs' word offsets,
+    the classes' numpy (idx, bm, vals, grid, w), output words)."""
+    parts, entries, arrays, at, words = [], [], [], 0, 0
+    for i, (w, br, grid, what) in enumerate(specs):
+        rng = np.random.default_rng(seed + i)
+        idx, bm, vals = (t.cpu().numpy() for t in _bm8_case(
+            w, B, br, grid, seed + i, torch.device("cpu")))
+        if what == "unsorted":
+            for b in range(B):
+                perm = rng.permutation(br)
+                idx[b], bm[b] = idx[b, perm], bm[b, perm]
+        if what == "clamped":                      # positions past the end
+            vals = vals[:, :max(1, int((bm != 0).sum(2).sum(1).min()) * 4)]
+        entry = []
+        for a in (idx, bm, vals):
+            lanes = np.ascontiguousarray(a).reshape(B, -1).view(np.uint8)
+            entry.append(at)
+            parts.append((at, lanes))
+            at += -(-lanes.shape[1] // 8) * 8
+        arrays.append((idx, bm, vals, grid, w))
+        entries.append((*entry, br, vals.shape[1], grid, w, words))
+        words += B * grid * w
+    stride = at + 4 if (at + 4) % 16 else at + 8
+    buf = np.zeros((B, stride), np.uint8)
+    for off, lanes in parts:
+        buf[:, off:off + lanes.shape[1]] = lanes
+    return (torch.from_numpy(buf).to(dev), [
+        (i, bm, v, stride, stride, stride, *rest)
+        for i, bm, v, *rest in entries], arrays, words)
+
+
+# class sets of one K8 call: the wire's widths and sizes, rows out of
+# order, positions past the lane's last value, five classes at once
+BM8_CLASS_SETS = {
+    "wire": [(16, 2500, 3000, "sorted"), (64, 600, 750, "sorted"),
+             (16, 900, 1500, "sorted"), (16, 40, 190, "sorted"),
+             (8, 60, 190, "sorted")],
+    "unsorted": [(16, 3000, 8000, "unsorted"), (8, 33, 40, "sorted")],
+    "clamped": [(64, 700, 2000, "clamped"), (16, 5000, 9000, "clamped")],
+    "many_chunks": [(16, 60000, 130560, "sorted")],
+}
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("classes", BM8_CLASS_SETS)
+def test_unpack_bm8_classes_kernel(dev, classes, B):
+    """K8's one call over several classes (the table unpack_wire gives
+    it: sections at offsets in one byte buffer, lanes a row stride
+    apart): each class's region torch.equal to the plain _scatter_bm8;
+    one wrapper launch."""
+    buf, entries, arrays, words = _bm8_classes(
+        BM8_CLASS_SETS[classes], B, 7 * B + len(classes), dev)
+    t = k8.class_table(entries, B)
+    out = torch.empty(words, dtype=torch.int32, device=dev)
+    n0 = kernels.LAUNCHES["unpack_bm8"]
+    k8.launch(buf.data_ptr(), out, t, B, dev)
+    assert kernels.LAUNCHES["unpack_bm8"] == n0 + 1
+    at = 0
+    for idx, bm, vals, grid, w in arrays:
+        want = _scatter_bm8(*(torch.from_numpy(np.ascontiguousarray(a))
+                              .to(dev) for a in (idx, bm.view(np.int16),
+                                                 vals)), grid, w)
+        got = out[at:at + B * grid * w].view(B, grid, w)
+        assert torch.equal(got, want)
+        at += B * grid * w
+
+
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("case", ["sparse", "base", "mixed"])
+def test_unpack_bm8_round_kernel(dev, case, B):
+    """K8's one call over every bm8 class of a wire round
+    (unpack_bm8_round): each class torch.equal to _scatter_bm8 on its
+    sections; one wrapper launch, two device kernels."""
+    buf, spec = _wire_round(case, 120, 68, B, dev)
+    keys = k12.bm8_keys(spec)
+    want = {k: v for k, v in unpack_wire_plain(buf, 120, 68, spec).items()
+            if k in keys}
+    n0 = kernels.LAUNCHES["unpack_bm8"]
+    got = k12.unpack_bm8_round(buf, 120, 68, spec)
+    assert kernels.LAUNCHES["unpack_bm8"] == n0 + bool(keys)
+    assert set(got) == keys and (keys or case == "mixed")
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    assert k12.bm8_launches(spec, 120 * 68) == (2 if keys else 0)
+
+
 def _wire_round(case, mb_w, mb_h, B, dev):
     """(buf [B, total] uint8 on the card, lanes a row stride apart; spec):
     a wire round of WIRE_CASES[case] (ops/synthetic.py), its lanes
@@ -356,11 +449,12 @@ def _wire_round(case, mb_w, mb_h, B, dev):
 
 def _check_unpack(buf, mb_w, mb_h, spec):
     """K12 (and K8 for the bm8 classes) torch.equal to unpack_wire_plain
-    for every key; one K12 wrapper launch, one K8 launch a bm8 class."""
+    for every key; one K12 wrapper launch, and one K8 launch where the
+    round ships a bm8 class."""
     want = unpack_wire_plain(buf, mb_w, mb_h, spec)
     n0 = dict(kernels.LAUNCHES)
     got = unpack_wire_k12(buf, mb_w, mb_h, spec)
-    bm8 = sum(sch == "bm8" for _, sch, _ in spec)
+    bm8 = any(sch == "bm8" for _, sch, _ in spec)
     assert kernels.LAUNCHES == {**n0, "unpack_wire": n0["unpack_wire"] + 1,
                                 "unpack_bm8": n0["unpack_bm8"] + bm8}
     assert set(got) == set(want)
@@ -682,6 +776,31 @@ def test_inter_combine_kernel(dev, mb_w, mb_h, B, weights):
     want = inter_init_plain(*case, mb_w, mb_h)
     for g, w in zip(got, want, strict=True):
         assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_inter_combine_refuses_unaligned(dev):
+    """Inputs whose addresses the kernel's row accesses cannot take (a
+    residual plane 4 bytes off 16, a luma prediction 1 byte off 4, a
+    weight table off 16) raise and launch nothing: no fallback to the
+    plain version on the card."""
+    a, *rest = _combine_case(7, 5, 2, 3, dev, "tables")
+    pred_y, pred_c, res_y, res_cb, res_cr = rest
+
+    def off(t, nbytes):
+        """t's values in a buffer, nbytes past its start."""
+        flat = torch.empty(t.numel() * t.element_size() + 16,
+                           dtype=torch.uint8, device=dev)
+        return flat[nbytes:nbytes + t.numel() * t.element_size()].view(
+            t.dtype).view(t.shape).copy_(t)
+
+    n0 = dict(kernels.LAUNCHES)
+    for args in ((a, pred_y, pred_c, off(res_y, 4), res_cb, res_cr),
+                 (a, off(pred_y, 1), pred_c, res_y, res_cb, res_cr),
+                 ({**a, "wtab": off(a["wtab"], 8)}, pred_y, pred_c, res_y,
+                  res_cb, res_cr)):
+        with pytest.raises(ValueError):
+            inter_combine(*args, 7, 5)
+    assert kernels.LAUNCHES == n0
 
 
 def _pictures(mb_w, mb_h, B, seed, dev):

@@ -19,8 +19,8 @@ must also have launched the order's intra and deblock kernels and the
 deblock-table kernel K7 and the residual kernel K9 once a picture (a
 BatchDecoder round), K3/K4 and the inter combine K10 once a P/B picture
 (a round with a P/B lane), the wire unpack K12 once a wire upload and
-the wire's bm8 kernel K8 once for each coefficient class that a wire
-upload shipped as bm8, and the reference store K11 once a store of
+the wire's bm8 kernel K8 once for each wire upload that shipped a
+coefficient class as bm8, and the reference store K11 once a store of
 reference pictures (a round with a storing lane; `bm8_tally` counts
 them).  Exit code 0 iff every frame is exact
 and every count as it must be.
@@ -88,10 +88,11 @@ def rounds_of(names: list[str]) -> tuple[int, int, list[int]]:
 @contextlib.contextmanager
 def bm8_tally():
     """While open, count the wire uploads that models.pipeline unpacks
-    (`unpacks`: the launches K12, unpack_wire, must make) and the
-    coefficient classes they ship as bm8 (`bm8`), from the specs
-    unpack_wire is given: the launches K8 (unpack_bm8) must make (a dense
-    upload unpacks nothing); and the reference stores
+    (`unpacks`: the launches K12, unpack_wire, must make) and those of
+    them that ship any coefficient class as bm8 (`bm8`), from the specs
+    unpack_wire is given: the launches K8 (unpack_bm8, one call for all
+    of an upload's bm8 classes) must make (a dense upload unpacks
+    nothing); and the reference stores
     with a storing lane that the decoders ask store_refs_fn for
     (`stores`, where models.pipeline and parallel.sharding call it): the
     launches K11 (store_refs) must make.  Yields the counts."""
@@ -103,7 +104,7 @@ def bm8_tally():
 
     def counted(buf, mb_w, mb_h, spec):
         tally["unpacks"] += 1
-        tally["bm8"] += sum(sch == "bm8" for _, sch, _ in spec)
+        tally["bm8"] += any(sch == "bm8" for _, sch, _ in spec)
         return unpack(buf, mb_w, mb_h, spec)
 
     def counted_store(dpb_y, dpb_c, lanes, *rest):
@@ -144,9 +145,9 @@ def check_counts(r: dict, names: list[str], order: str, batch: bool,
     kernel as it must, `launches` being the wrappers' counts over it: the
     order's intra and deblock kernels, K7 and K9 once a picture (a round),
     K3/K4 and K10 once a P/B picture (a round with a P/B lane), K12 once a
-    wire upload (r["unpacks"]), K8 once a bm8 class of each wire upload
-    (r["bm8"]) and K11 once a store with a storing lane (r["stores"], at
-    least one), with a batch's every round
+    wire upload (r["unpacks"]), K8 once a wire upload that ships a bm8
+    class (r["bm8"]) and K11 once a store with a storing lane
+    (r["stores"], at least one), with a batch's every round
     through `upload` and a stream's every picture through the wire or
     none; else what differs."""
     rounds, inter, _ = rounds_of(names)
