@@ -141,10 +141,7 @@ class DecodeStats:
     upload_bytes: int = 0           # host->device bytes of the pictures' ABIs
 
     def as_dict(self) -> dict:
-        d = dict(self.__dict__)
-        wall = self.host_parse_s + self.device_dispatch_s + self.emit_sync_s
-        d["fps_wall"] = round(self.frames / wall, 2) if wall else 0.0
-        return d
+        return dict(self.__dict__)
 
 
 class Decoder:

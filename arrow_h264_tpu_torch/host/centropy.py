@@ -31,6 +31,7 @@ import numpy as np
 from ..bitstream.params import PPS, SPS
 from ..bitstream.slicehdr import SliceHeader
 from ..ops.abi import FrameABI
+from ..spans import now, recorder
 
 _PKG = Path(__file__).resolve().parent.parent
 _CPP = Path(__file__).resolve().parent / "cpp"
@@ -132,6 +133,7 @@ def load_lib(sanitize: bool | None = None, trace: bool = False):
     key = (sanitize, trace, stats)
     if key in _libs:
         return _libs[key]
+    t0 = now() if recorder.enabled else 0
     path = lib_path(*key)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -188,6 +190,8 @@ def load_lib(sanitize: bool | None = None, trace: bool = False):
         raise RuntimeError(f"{path}: ABI version {lib.h264e_abi_version()},"
                            f" expected {ABI_VERSION}")
     _libs[key] = lib
+    if t0:
+        recorder.add("setup.host_lib", t0, now())
     return lib
 
 

@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ...spans import now, recorder
+
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -105,7 +107,10 @@ def load(path: Path | None = None) -> ctypes.CDLL:
     if path is not None:
         _lib = ctypes.CDLL(str(path))
     elif _lib is None:
+        t0 = now() if recorder.enabled else 0
         _lib = ctypes.CDLL(str(build()))
+        if t0:
+            recorder.add("setup.kernels", t0, now())
     return _lib
 
 

@@ -29,7 +29,6 @@ field and frame streams cannot share a batch (`stream_params`).
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -43,6 +42,7 @@ from ..models.pipeline import (
 )
 from ..ops.abi import KIND_P, empty_frame_abi
 from ..ops.wire import emit_wire, merge_specs, pack_wire_raw, wire_total
+from ..spans import now, recorder
 from .sharding import (
     make_stream_mesh, shard_bounds, sharded_decode_fn, sharded_store_fn,
 )
@@ -168,13 +168,17 @@ class BatchDecoder:
         self._dummy = empty_frame_abi(mb_w, mb_h)
         self._dummy_wire = pack_wire_raw(self._dummy, mb_w, mb_h)
 
-    def _upload(self, abis: dict, wires: dict) -> list[dict]:
+    def _upload(self, abis: dict, wires: dict,
+                ctx: tuple | None = None) -> list[dict]:
         """The round's ABI dict of each shard on its device: the lanes of
         `abis` (lane -> host ABI) and the dummy for the others, as wire
         buffers (`wires`: lane -> (raw, spec)) unless upload="dense" or
         a lane carries dense per-cell weights.  Counts the round and its
-        lanes' upload_bytes."""
+        lanes' upload_bytes.  ctx: (call, round, the upload span's id, the
+        round span's attrs, given "upload" and "bytes" shipped) when the
+        span recorder is on."""
         B = self.n_streams
+        t = now() if ctx else 0
         if self.upload == "dense" or any("wp" in a for a in abis.values()):
             self.dense_rounds += 1
             out = []
@@ -187,6 +191,10 @@ class BatchDecoder:
                     if i in abis:
                         self.decoders[i].stats.upload_bytes += lane_bytes
                 out.append(batch)
+            if ctx:
+                recorder.mark("upload.copy", t, ctx[2], *ctx[:2])
+                ctx[3].update(upload="dense",
+                              bytes=sum(map(upload_nbytes, out)))
             return out
         self.wire_rounds += 1
         mb_w, mb_h = self._params[:2]
@@ -198,12 +206,21 @@ class BatchDecoder:
         total = wire_total(target, n)
         buf = wire_staging(B, total, self.device)
         rows = buf.numpy()
+        emit_id = 0
+        if ctx:
+            t = recorder.mark("upload.merge", t, ctx[2], *ctx[:2])
+            emit_id = recorder.new_id()
 
         def emit(i):
+            t0 = now() if ctx else 0
             emit_wire(*wires.get(i, self._dummy_wire), target, n,
                       out=rows[i])
+            if ctx:
+                recorder.add("lane.emit", t0, now(), emit_id, *ctx[:2], i)
 
         list(self._pool.map(emit, range(B)))
+        if ctx:
+            t = recorder.mark("upload.emit", t, ctx[2], *ctx[:2], emit_id)
         out = []
         for (s0, s1), dev in zip(self._shards, self.mesh):
             batch = wire_to_device(buf[s0:s1], target, mb_w, mb_h, dev)
@@ -213,6 +230,10 @@ class BatchDecoder:
                 batch["cvoff"] = cv
             out.append(batch)
         field = any("cvoff" in a for a in abis.values())
+        if ctx:
+            recorder.mark("upload.copy", t, ctx[2], *ctx[:2])
+            ctx[3].update(upload="wire",
+                          bytes=B * (total + 4 * self.n_slots * field))
         for i in wires:
             self.decoders[i].stats.upload_bytes += \
                 total + 4 * self.n_slots * field
@@ -224,7 +245,8 @@ class BatchDecoder:
         """Decode the Annex-B streams in lockstep; returns per-stream frame
         lists in output order (PendingFrames, or what on_frame returned,
         with materialize=False).  Failed streams yield partial lists; see
-        self.errors."""
+        self.errors.  With spans.recorder on, records the call's spans
+        (the module's docstring there)."""
         B = self.n_streams
         if len(streams) != B:
             raise ValueError(f"{len(streams)} streams for {B} lanes")
@@ -238,6 +260,13 @@ class BatchDecoder:
         self.upload_s = 0.0
         shard_of = [(s, i - s0) for s, (s0, s1) in enumerate(self._shards)
                     for i in range(s0, s1)]
+        # spans: the call, its id, the round's number and id, and the
+        # main-thread wait that the pool's spans of the moment belong to
+        on = recorder.enabled
+        call = recorder.new_call() if on else -1
+        did = recorder.new_id() if on else 0
+        t_call = t = now() if on else 0
+        r, rid, wait = -1, 0, 0
 
         def fail(i, e):
             self.errors[i] = e
@@ -245,7 +274,7 @@ class BatchDecoder:
             pending[i] = None
 
         def advance(i):
-            t0 = time.perf_counter()
+            t0 = now()
             try:
                 pending[i] = next(gens[i])
             except StopIteration:
@@ -253,11 +282,14 @@ class BatchDecoder:
                 pending[i] = None
             except Exception as e:           # corrupt lane: isolate
                 fail(i, e)
-            self.decoders[i].stats.host_parse_s += time.perf_counter() - t0
+            t1 = now()
+            self.decoders[i].stats.host_parse_s += (t1 - t0) / 1e9
+            if on:
+                recorder.add("lane.parse", t0, t1, wait, call, r, i)
 
         def pack(i):
             """(host ABI, wire records or None) of lane i's picture."""
-            t0 = time.perf_counter()
+            t0 = now()
             try:
                 abi = self.decoders[i].pack_abi(*pending[i])
                 if self.upload == "dense" or "wp" in abi:
@@ -269,13 +301,33 @@ class BatchDecoder:
                 fail(i, e)
                 return None
             finally:
-                self.decoders[i].stats.host_parse_s += \
-                    time.perf_counter() - t0
+                t1 = now()
+                self.decoders[i].stats.host_parse_s += (t1 - t0) / 1e9
+                if on:
+                    recorder.add("lane.pack", t0, t1, wait, call, r, i)
 
+        def out(i, j, frame, parent, rnd):
+            """Hand lane i's frame j out: on_frame's return value, else
+            the frame; a frame_out instant."""
+            if on:
+                t = now()
+                recorder.add("frame_out", t, t, parent, call, rnd, i)
+            frames[i][j] = frame if self.on_frame is None else \
+                self.on_frame(i, frame)
+
+        if on:
+            wait = recorder.new_id()
         list(self._pool.map(advance, range(B)))
+        if on:
+            t = recorder.mark("parse_first", t, did, call, sid=wait)
         while any(p is not None for p in pending):
+            r = self.rounds
+            if on:
+                rid, wait, t_round = recorder.new_id(), recorder.new_id(), t
             live = [i for i in range(B) if pending[i] is not None]
             packed = dict(zip(live, self._pool.map(pack, live)))
+            if on:
+                t = recorder.mark("pack_wait", t, rid, call, r, wait)
             abis = {i: p[0] for i, p in packed.items() if p is not None}
             wires = {i: p[1] for i, p in packed.items()
                      if p is not None and p[1] is not None}
@@ -285,6 +337,8 @@ class BatchDecoder:
                 self._init_device(
                     stream_params(pic.sps, pic.pps),
                     max(dpb_slots(pending[i][0].sps) for i in abis))
+                if on:
+                    t = recorder.mark("setup.device_state", t, rid, call, r)
             for i in list(abis):
                 pic = pending[i][0]
                 if stream_params(pic.sps, pic.pps) != self._params:
@@ -302,18 +356,24 @@ class BatchDecoder:
                     wires.pop(i, None)
             live = [i for i in live if i in abis]
             if not live:
+                if on:
+                    t = recorder.mark("round", t_round, did, call, r, rid,
+                                      {"live": 0})
                 break
 
-            t0 = time.perf_counter()
+            t0 = now()
+            uid, attrs = (recorder.new_id(), {}) if on else (0, None)
             inter = _inter(abis.values())
-            batches = self._upload(abis, wires)
+            batches = self._upload(abis, wires,
+                                   (call, r, uid, attrs) if on else None)
             wires.clear()  # release views of the parse buffers
-            self.upload_s += time.perf_counter() - t0
+            t1 = now()
+            self.upload_s += (t1 - t0) / 1e9
             planes = self._step(batches, self._dpb_y, self._dpb_c, inter)
             del batches
             self.rounds += 1
             self.inter_rounds += inter
-            dispatch_s = time.perf_counter() - t0
+            t2 = now()
 
             # commit each lane; the reference stores of the round are
             # collected and written by one batched store
@@ -331,11 +391,13 @@ class BatchDecoder:
                         self.n_slots, rec))
                 except Exception as e:
                     fail(i, e)
-            t0 = time.perf_counter()
+            t3 = now()
             keep = [k for k, i in enumerate(lanes) if self.errors[i] is None]
             self._store(self._dpb_y, self._dpb_c, [lanes[k] for k in keep],
                         [slots[k] for k in keep], planes)
-            dispatch_s += time.perf_counter() - t0
+            t4 = now()
+            # the commit loop is the control loop's, not the dispatch's
+            dispatch_s = (t2 - t0 + t4 - t3) / 1e9
             for i in live:
                 self.decoders[i].stats.device_dispatch_s += \
                     dispatch_s / len(live)
@@ -343,32 +405,47 @@ class BatchDecoder:
             todo = [i for i in live if self.errors[i] is None]
             for i in todo:
                 pending[i] = None
+            if on:
+                recorder.add("upload", t0, t1, rid, call, r, sid=uid)
+                recorder.add("step", t1, t2, rid, call, r)
+                recorder.add("commit", t2, t3, rid, call, r)
+                recorder.add("store", t3, t4, rid, call, r)
 
             new = [(i, j) for i in range(B)
                    for j in range(mark[i], len(frames[i]))]
+            n_out = len(in_flight) if self.materialize else len(new)
             if self.materialize:
                 # queue this round's copies, then wait for last round's
                 # (queued before this round's device work)
                 for i, j in new:
                     frames[i][j].start_fetch()
                 for i, j in in_flight:
-                    frames[i][j] = self._finalize_timed(i, frames[i][j])
+                    self._finalize_timed(i, j, frames, rid, call, r)
                 in_flight = new
-            elif self.on_frame is not None:
+            else:
                 for i, j in new:
-                    frames[i][j] = self.on_frame(i, frames[i][j])
+                    out(i, j, frames[i][j], rid, r)
             # parse the next round's pictures while this round runs on the
             # device
+            if on:
+                t = recorder.mark("output", t4, rid, call, r)
+                wait = recorder.new_id()
             list(self._pool.map(advance, todo))
+            if on:
+                t = recorder.mark("parse_wait", t, rid, call, r, wait)
+                attrs.update(live=len(live), committed=len(todo),
+                             output=n_out)
+                recorder.add("round", t_round, t, did, call, r, -1, rid,
+                             attrs)
 
         for i in range(B):
             d = self.decoders[i]
             if self.errors[i] is None and d.dpb is not None:
                 tail = len(frames[i])
                 frames[i].extend(d._emit(p) for p in d.dpb.flush())
-                if self.on_frame is not None:
+                if not self.materialize:
                     for j in range(tail, len(frames[i])):
-                        frames[i][j] = self.on_frame(i, frames[i][j])
+                        out(i, j, frames[i][j], did, -1)
         if self.materialize:
             # every copy still to make is queued before the first wait
             rest = [(i, j) for i in range(B) for j in range(len(frames[i]))
@@ -376,16 +453,23 @@ class BatchDecoder:
             for i, j in rest:
                 frames[i][j].start_fetch()
             for i, j in rest:
-                frames[i][j] = self._finalize_timed(i, frames[i][j])
+                self._finalize_timed(i, j, frames, did, call, -1)
+        if on:
+            t = recorder.mark("flush", t, did, call)
+            recorder.add("decode", t_call, t, 0, call, sid=did)
         return frames
 
-    def _finalize_timed(self, i: int, pending: PendingFrame) -> Frame:
-        """Materialize a deferred frame, timing the wait and copy into the
-        lane's emit_sync_s."""
-        t0 = time.perf_counter()
-        f = pending.finalize()
-        self.decoders[i].stats.emit_sync_s += time.perf_counter() - t0
-        return f
+    def _finalize_timed(self, i: int, j: int, frames: list, parent: int,
+                        call: int, rnd: int) -> None:
+        """Materialize lane i's deferred frame j in place, timing the wait
+        and copy into the lane's emit_sync_s; with spans on, the frame's
+        frame_out instant (a child of `parent`) at the copy's end."""
+        t0 = now()
+        frames[i][j] = frames[i][j].finalize()
+        t1 = now()
+        self.decoders[i].stats.emit_sync_s += (t1 - t0) / 1e9
+        if call >= 0:
+            recorder.add("frame_out", t1, t1, parent, call, rnd, i)
 
 
 def decode_batch_lockstep(abis: list[dict], dpbs: list[tuple], mesh=None,
