@@ -139,6 +139,9 @@ class DecodeStats:
     emit_sync_s: float = 0.0        # device->host copy at output time
     concealed_mbs: int = 0
     upload_bytes: int = 0           # host->device bytes of the pictures' ABIs
+    pack_full_scans: int = 0        # wire-packed pictures whose decode-time
+                                    # row hints were unusable (not ascending,
+                                    # as under ASO): rows scanned in full
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -393,6 +396,7 @@ class Decoder:
         self.stats.device_dispatch_s += time.perf_counter() - t0
         mode, nbytes = pipeline.last_upload
         self.stats.upload_bytes += nbytes
+        self.stats.pack_full_scans += pipeline.last_full_scans
         if self._trace is not None:
             trace_upload(self._trace, self._frame_idx - 1, mode, nbytes)
         yield from self.commit(pic, poc, y, cb, cr, pipeline.n_slots,

@@ -19,6 +19,7 @@ C++-filled arrays.
 from __future__ import annotations
 
 import ctypes as C
+import functools
 import hashlib
 import os
 import subprocess
@@ -36,10 +37,11 @@ from ..spans import now, recorder
 _PKG = Path(__file__).resolve().parent.parent
 _CPP = Path(__file__).resolve().parent / "cpp"
 _SRC = [_CPP / "entropy.cpp", _CPP / "entropy_mb.inc",
-        _CPP / "entropy_inter.inc", _CPP / "tables_gen.h"]
+        _CPP / "entropy_inter.inc", _CPP / "entropy_wire.inc",
+        _CPP / "tables_gen.h"]
 BUILD_DIR = _PKG / "_build"
 
-ABI_VERSION = 6
+ABI_VERSION = 7
 
 
 class _PicBuf(C.Structure):
@@ -79,6 +81,41 @@ class _SliceParams(C.Structure):
         ("field_pic", C.c_int32),
         ("next_mb", C.c_void_p),
     ]
+
+
+_WIRE_CLASSES = 5        # ops/wire.py _COEFF_FIELDS, in its order
+
+
+class _WireClassIn(C.Structure):
+    _fields_ = [("src", C.c_void_p), ("hint", C.c_void_p),
+                ("n_hint", C.c_int64), ("cells", C.c_int64),
+                ("width", C.c_int64)]
+
+
+class _WireIn(C.Structure):
+    _fields_ = [("n", C.c_int64)] + [(name, C.c_void_p) for name in (
+        "kind", "qp", "slice_id", "deblock_off", "mb_avail", "tr8",
+        "i16_mode", "chroma_mode", "nz", "disable_idc", "alpha_off",
+        "beta_off", "slogwd", "i4_modes", "i4_avail", "i8_modes",
+        "i8_avail", "mv", "refidx", "refslot", "refid", "nx_uids")] + [
+        ("n_nx", C.c_int64), ("pcm", C.c_void_p), ("wtab", C.c_void_p),
+        ("cls", _WireClassIn * _WIRE_CLASSES)]
+
+
+class _WireOut(C.Structure):
+    _fields_ = [(name, C.c_void_p) for name in (
+        "meta6", "slice8", "in_idx", "in_ext", "mv_base", "ref_base",
+        "nu_idx", "nu_mv", "nu_ref", "mv16", "ref8", "pcm_idx", "pcm_val",
+        "wt_idx", "wt_val")] + [
+        (f"cls{c}_{part}", C.c_void_p) for c in range(_WIRE_CLASSES)
+        for part in ("idx", "bm", "val", "dense16")] + [
+        ("counts", C.c_void_p)]
+
+
+# h264e_pack_wire's counts (entropy_wire.inc, enum WireCount)
+WIRE_INTRA, WIRE_INTRA_K, WIRE_INTER, WIRE_INTER_K, WIRE_PCM, WIRE_PCM_K, \
+    WIRE_WTAB_K, WIRE_CLASS = range(8)
+WIRE_COUNTS = WIRE_CLASS + 4 * _WIRE_CLASSES
 
 
 _libs: dict = {}
@@ -181,6 +218,8 @@ def load_lib(sanitize: bool | None = None, trace: bool = False):
     lib.h264e_scan_inter.argtypes = [
         C.c_void_p, C.c_void_p, C.c_void_p, C.c_long, C.c_void_p,
         C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p, C.c_long]
+    lib.h264e_pack_wire.restype = C.c_int
+    lib.h264e_pack_wire.argtypes = [C.POINTER(_WireIn), C.POINTER(_WireOut)]
     lib.h264e_abi_version.restype = C.c_int
     lib.h264e_abi_version.argtypes = []
     if stats:
@@ -239,7 +278,12 @@ class gil_meter:
 
 
 def _ptr(a: np.ndarray) -> int:
-    return a.ctypes.data
+    """The address of a's data: through its buffer where it is writable
+    and not empty (half the cost of a.ctypes.data, ~1 us)."""
+    try:
+        return C.addressof(C.c_char.from_buffer(a))
+    except (TypeError, ValueError, BufferError):
+        return a.ctypes.data
 
 
 def scan_rows32(src2d: np.ndarray, cap: int):
@@ -335,6 +379,129 @@ def scan_inter(mv: np.ndarray, refidx: np.ndarray, refslot: np.ndarray,
     if t0 is not None:
         gil_meter.add(time.perf_counter() - t0, "h264e_scan_inter")
     return int(k), mv_base, ref_base, idx, mv_nu, ref_nu
+
+
+def _wire_arg(abi, key: str, dtype, size: int) -> np.ndarray:
+    """abi[key] as a contiguous array of dtype (copied only where it is
+    not one already) holding `size` values."""
+    a = np.ascontiguousarray(abi[key], dtype)
+    if a.size != size:
+        raise ValueError(f"pack_wire_records: {key} holds {a.size} values, "
+                         f"expected {size}")
+    return a
+
+
+# h264e_pack_wire's dense fallbacks: large and seldom written, they are
+# allocated apart, so that the rest stays one allocation under malloc's
+# mmap threshold (32 MB) at 2160p and is not faulted in afresh each call
+_WIRE_APART = ("pcm_val", "_src16")
+
+
+@functools.lru_cache(maxsize=8)
+def _wire_layout(n: int, classes: tuple) -> tuple:
+    """h264e_pack_wire's outputs for n MBs in _WireOut's order: ([(name,
+    dtype, shape, bytes, offset in the shared allocation or None:
+    apart)], the shared allocation's bytes).  Shared sections start 64
+    bytes apart."""
+    cap = n // 2 + 1
+    secs = [("meta6", np.uint8, (n, 6)), ("slice8", np.int8, (16, 6)),
+            ("in_idx", np.int32, (n,)), ("in_ext", np.uint8, (n, 40)),
+            ("mv_base", np.int16, (n, 4)), ("ref_base", np.int8, (n, 4)),
+            ("nu_idx", np.int32, (cap,)), ("nu_mv", np.int16, (cap, 64)),
+            ("nu_ref", np.int8, (cap, 64)), ("mv16", np.int16, (n, 64)),
+            ("ref8", np.int8, (n, 64)), ("pcm_idx", np.int32, (n,)),
+            ("pcm_val", np.uint8, (n, 384)), ("wt_idx", np.int32, (16,)),
+            ("wt_val", np.int16, (16, 33 * 33 * 3 * 4))]
+    for f, _key, cells, w in classes:
+        rows = n * cells
+        secs += [(f + "_idx", np.int32, (rows // 2 + 1,)),
+                 (f + "_bm", np.uint16, (rows // 2 + 1, (w + 15) // 16)),
+                 (f + "_val", np.int8, (rows * w // 4 + 1,)),
+                 (f + "_src16", np.int16, (rows, w))]
+    secs.append(("counts", np.int64, (WIRE_COUNTS,)))
+    out, off = [], 0
+    for name, dt, shape in secs:
+        size = int(np.prod(shape)) * np.dtype(dt).itemsize
+        if name.endswith(_WIRE_APART):
+            out.append((name, np.dtype(dt), shape, size, None))
+            continue
+        out.append((name, np.dtype(dt), shape, size, off))
+        off += (size + 63) & ~63
+    return out, off
+
+
+def pack_wire_records(abi, n: int, classes) -> tuple:
+    """One picture's wire records by h264e_pack_wire (host/cpp/
+    entropy_wire.inc), in one call with the GIL released.
+
+    abi: the picture's dense ABI of n MBs (ops/abi.py; "deblock_off",
+    "nx_uids" and the row hints "_nzr" may be absent); classes: the
+    coefficient classes, (wire name, ABI key, cells an MB, values a cell)
+    each, in ops/wire.py's _COEFF_FIELDS order.  Every array is checked
+    for its size and passed without a copy where it is contiguous and of
+    the library's type already (the C parse's are).  The outputs but the
+    dense fallbacks share one allocation (_wire_layout).  Returns
+    (counts, a list of int
+    [WIRE_COUNTS]; out(name), an output as an array: meta6, slice8,
+    in_idx, ... and each class's f_idx, f_bm, f_val, f_src16; the
+    classes' int32 sources as [rows, values a cell])."""
+    lib = load_lib()
+    i32 = np.int32
+    keep = {k: _wire_arg(abi, k, i32, n * m) for k, m in (
+        ("kind", 1), ("qp", 1), ("slice_id", 1), ("mb_avail", 3),
+        ("tr8", 1), ("i16_mode", 1), ("chroma_mode", 1), ("nz", 16),
+        ("disable_idc", 1), ("alpha_off", 1), ("beta_off", 1),
+        ("i4_modes", 16), ("i4_avail", 64), ("i8_modes", 4),
+        ("i8_avail", 16), ("mv", 64), ("refidx", 32), ("refslot", 32),
+        ("refid", 32), ("pcm", 384))}
+    keep["slogwd"] = _wire_arg(abi, "slogwd", i32, 32)
+    keep["wtab"] = _wire_arg(abi, "wtab", np.int16, 16 * 33 * 33 * 3 * 4)
+    if abi.get("deblock_off") is not None:
+        keep["deblock_off"] = _wire_arg(abi, "deblock_off", i32, n)
+    nx = abi.get("nx_uids")
+    if nx is not None and len(nx):
+        keep["nx_uids"] = np.ascontiguousarray(nx, np.int64).reshape(-1)
+    win = _WireIn(n=n, n_nx=len(keep.get("nx_uids", ())),
+                  **{k: _ptr(a) for k, a in keep.items()})
+    nzr = abi.get("_nzr")
+    srcs = []
+    for c, (f, key, cells, w) in enumerate(classes):
+        rows = n * cells
+        src = _wire_arg(abi, key, i32, rows * w).reshape(rows, w)
+        srcs.append(src)
+        cl = win.cls[c]
+        cl.src, cl.cells, cl.width = _ptr(src), cells, w
+        if nzr is not None and f in nzr:
+            hint = np.ascontiguousarray(nzr[f], i32)
+            keep["hint_" + f] = hint
+            cl.hint, cl.n_hint = _ptr(hint), len(hint)
+    secs, nbytes = _wire_layout(n, tuple(classes))
+    shared = np.empty(nbytes, np.uint8)
+    base = _ptr(shared)
+    outs, ptrs = {}, []
+    for name, dt, shape, size, off in secs:
+        if off is None:
+            a = outs[name] = np.empty(shape, dt)
+            ptrs.append(_ptr(a))
+        else:
+            ptrs.append(base + off)
+            outs[name] = (off, dt, shape, size)
+    wout = _WireOut(*ptrs)
+    t0 = time.perf_counter() if gil_meter.enabled else None
+    ret = lib.h264e_pack_wire(C.byref(win), C.byref(wout))
+    if t0 is not None:
+        gil_meter.add(time.perf_counter() - t0, "h264e_pack_wire")
+    if ret != 0:
+        raise ValueError("pack_wire_records: a slice id outside [-16, 16)")
+
+    def out(name: str) -> np.ndarray:
+        o = outs[name]
+        if isinstance(o, np.ndarray):
+            return o
+        off, dt, shape, size = o
+        return shared[off:off + size].view(dt).reshape(shape)
+
+    return out("counts").tolist(), out, srcs
 
 
 class PicBufPool:

@@ -1139,45 +1139,59 @@ extern "C" long h264e_scan_rows32(const int32_t* src, long rows, int cols,
   return k;
 }
 
-// Bitmap+packed scan (wire v3): nonzero rows of a dense int32 matrix are
-// emitted as (row index, per-16-lane significance bitmaps, nonzero values
-// packed contiguously as int8).  Shrinks a sparse 4x4 coefficient block
-// from 36 wire bytes to ~6 + nnz.  Writing stops at cap_r rows / cap_v
-// values; the caller falls back to a dense encoding when either cap or
-// the int8 range overflows.  Returns total nonzero rows; *nnz_total gets
-// the number of values written.
+// One row of a bitmap+packed class (wire v3): a nonzero row of `cols`
+// values at p is emitted as (row index r, per-16-lane significance
+// bitmaps, nonzero values packed contiguously as int8) while fewer than
+// cap_r rows / cap_v values were written, and counted in k / nv either
+// way.  *ovf is set when a value misses int8.  Returns whether the row is
+// nonzero.  Shrinks a sparse 4x4 coefficient block from 36 wire bytes to
+// ~6 + nnz.
+namespace {
+H264E_INLINE bool bm8_row(const int32_t* p, int cols, int32_t r,
+                          int32_t* idx, uint16_t* bm, int8_t* vals,
+                          long cap_r, long cap_v, long& k, long& nv,
+                          int& ovf) {
+  int32_t acc = 0;
+  for (int c = 0; c < cols; c++) acc |= p[c];
+  if (acc == 0) return false;
+  if (k < cap_r) {
+    const int bmw = (cols + 15) / 16;
+    idx[k] = r;
+    uint16_t* b = bm + k * bmw;
+    uint32_t wide = 0;
+    for (int g = 0; g < bmw; g++) {
+      const int32_t* q = p + g * 16;
+      const int lim = cols - g * 16 < 16 ? cols - g * 16 : 16;
+      uint32_t m = 0;
+      for (int c = 0; c < lim; c++) m |= (uint32_t)(q[c] != 0) << c;
+      b[g] = (uint16_t)m;
+      for (; m; m &= m - 1) {            // the nonzero values, in order
+        const int32_t x = q[__builtin_ctz(m)];
+        wide |= (uint32_t)x + 128u > 255u;
+        if (nv < cap_v) vals[nv] = (int8_t)x;
+        nv++;
+      }
+    }
+    ovf |= wide != 0;
+  }
+  k++;
+  return true;
+}
+}  // namespace
+
+// Bitmap+packed scan of a dense int32 matrix: bm8_row over every row.
+// The caller falls back to a dense encoding when either cap or the int8
+// range overflows.  Returns total nonzero rows; *nnz_total gets the
+// number of values written.
 extern "C" long h264e_scan_blocks8(const int32_t* src, long rows, int cols,
                                    int32_t* idx, uint16_t* bm, int8_t* vals,
                                    long cap_r, long cap_v,
                                    long* nnz_total, int* overflow) {
-  const int bmw = (cols + 15) / 16;
   long k = 0, nv = 0;
   int ovf = 0;
-  for (long r = 0; r < rows; r++) {
-    const int32_t* p = src + (long)r * cols;
-    int32_t acc = 0;
-    for (int c = 0; c < cols; c++) acc |= p[c];
-    if (H264E_LIKELY(acc == 0)) continue;
-    if (k < cap_r) {
-      idx[k] = (int32_t)r;
-      uint16_t* b = bm + k * bmw;
-      for (int wgrp = 0; wgrp < bmw; wgrp++) {
-        uint16_t m = 0;
-        const int base = wgrp * 16;
-        const int lim = cols - base < 16 ? cols - base : 16;
-        for (int c = 0; c < lim; c++) {
-          int32_t x = p[base + c];
-          if (x == 0) continue;
-          m |= (uint16_t)(1u << c);
-          if (H264E_UNLIKELY(x < -128 || x > 127)) ovf = 1;
-          if (nv < cap_v) vals[nv] = (int8_t)x;
-          nv++;
-        }
-        b[wgrp] = m;
-      }
-    }
-    k++;
-  }
+  for (long r = 0; r < rows; r++)
+    bm8_row(src + r * cols, cols, (int32_t)r, idx, bm, vals, cap_r, cap_v,
+            k, nv, ovf);
   *nnz_total = nv;
   *overflow = ovf | (nv > cap_v);
   return k;
@@ -1195,7 +1209,6 @@ extern "C" long h264e_gather_blocks8(const int32_t* src, long rows, int cols,
                                      int32_t* idx, uint16_t* bm, int8_t* vals,
                                      long cap_r, long cap_v,
                                      long* nnz_total, int* overflow) {
-  const int bmw = (cols + 15) / 16;
   long k = 0, nv = 0;
   int ovf = 0;
   int32_t prev = -1;
@@ -1203,29 +1216,8 @@ extern "C" long h264e_gather_blocks8(const int32_t* src, long rows, int cols,
     int32_t r = ridx[i];
     if (H264E_UNLIKELY(r <= prev || r >= rows)) return -1;
     prev = r;
-    const int32_t* p = src + (long)r * cols;
-    int32_t acc = 0;
-    for (int c = 0; c < cols; c++) acc |= p[c];
-    if (H264E_UNLIKELY(acc == 0)) continue;
-    if (k < cap_r) {
-      idx[k] = r;
-      uint16_t* b = bm + k * bmw;
-      for (int wgrp = 0; wgrp < bmw; wgrp++) {
-        uint16_t m = 0;
-        const int base = wgrp * 16;
-        const int lim = cols - base < 16 ? cols - base : 16;
-        for (int c = 0; c < lim; c++) {
-          int32_t x = p[base + c];
-          if (x == 0) continue;
-          m |= (uint16_t)(1u << c);
-          if (H264E_UNLIKELY(x < -128 || x > 127)) ovf = 1;
-          if (nv < cap_v) vals[nv] = (int8_t)x;
-          nv++;
-        }
-        b[wgrp] = m;
-      }
-    }
-    k++;
+    bm8_row(src + (long)r * cols, cols, r, idx, bm, vals, cap_r, cap_v, k,
+            nv, ovf);
   }
   *nnz_total = nv;
   *overflow = ovf | (nv > cap_v);
@@ -1495,3 +1487,5 @@ extern "C" int h264e_select_inter_mode(
 
 // continued in entropy_mb.inc (macroblock layer + slice loop)
 #include "entropy_mb.inc"
+// the wire pack (ops/wire.py::pack_wire_raw)
+#include "entropy_wire.inc"

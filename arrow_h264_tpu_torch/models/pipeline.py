@@ -327,8 +327,10 @@ class DevicePipeline:
                              f"{list(UPLOADS)}")
         self.device = torch.device(device)
         self.upload = upload
-        # (mode, bytes) of the last decode_frame's upload
+        # (mode, bytes) of the last decode_frame's upload, and whether its
+        # wire pack scanned rows in full (DecodeStats.pack_full_scans)
         self.last_upload: tuple[str, int] | None = None
+        self.last_full_scans = 0
         self._kw = decode_consts(stream_params(sps, pps), self.device, order)
         self.n_slots = dpb_slots(sps)
         self.sps, self.pps = sps, pps
@@ -342,6 +344,7 @@ class DevicePipeline:
         inter = bool((np.asarray(abi["kind"]) >= KIND_P).any())
         if self.upload == "wire" and "wp" not in abi:
             raw, spec = pack_wire_raw(abi, self.mb_w, self.mb_h)
+            self.last_full_scans = int(raw["full_scans"] > 0)
             batch = upload_wire([(raw, spec)], spec, self.mb_w, self.mb_h,
                                 self.device, self.n_slots,
                                 [abi.get("cvoff")])
@@ -350,6 +353,7 @@ class DevicePipeline:
         else:
             batch = upload_batch([abi], self.device, self.n_slots)
             self.last_upload = ("dense", upload_nbytes(batch))
+            self.last_full_scans = 0
         out = decode_frames_batch_fn(batch, self.dpb_y[None],
                                      self.dpb_c[None], inter=inter,
                                      **self._kw)

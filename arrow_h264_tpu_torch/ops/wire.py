@@ -24,13 +24,13 @@ host at pack time and on the device in the unpack):
                         when levels or density overflow)
   pcm      sparse u8 rows, wtab sparse non-identity rows
 
-`pack_wire_raw` (host: numpy + the C scans of host/cpp/entropy.cpp)
-returns compact records and the picture's own spec; `emit_wire` renders
-them into the upload buffer laid out per a target spec.  A lockstep
-batch merges its lanes' specs (`merge_specs`) so that one [B, total]
-buffer serves the whole round.  `pack_wire`, `conform_sections` and
-`flatten_wire` are the readable sections-dict form that emit_wire is
-tested byte-equal against.
+`pack_wire_raw` (host: one GIL-released call of host/cpp/
+entropy_wire.inc) returns compact records and the picture's own spec;
+`emit_wire` renders them into the upload buffer laid out per a target
+spec.  A lockstep batch merges its lanes' specs (`merge_specs`) so that
+one [B, total] buffer serves the whole round.  `pack_wire_raw_numpy`,
+`pack_wire`, `conform_sections` and `flatten_wire` are the readable
+numpy forms that the shipped path is tested byte-equal against.
 
 The reference's `patch` section (the TPU's MC envelope repair list) is
 not part of the port's wire: for an ABI that carries no patch entries the
@@ -45,7 +45,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host.centropy import gather_blocks8, scan_blocks8, scan_inter
+from ..host.centropy import (
+    WIRE_CLASS, WIRE_INTER, WIRE_INTER_K, WIRE_INTRA, WIRE_INTRA_K, WIRE_PCM,
+    WIRE_PCM_K, WIRE_WTAB_K, gather_blocks8, pack_wire_records, scan_blocks8,
+    scan_inter,
+)
 from .abi import KIND_IPCM, KIND_P, MAX_SLICES, identity_wtab
 from .transforms import device_copy
 
@@ -160,8 +164,231 @@ def flatten_wire(sections, spec, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# host pack
+# raw pack + direct emit (the shipped path): the pack produces COMPACT records
+# (k rows, no bucket padding), and emit_wire writes every section straight
+# into the upload buffer at its spec offset — one copy per section,
+# conforming to a bigger target spec for free (pad space is just buffer
+# zeros + idx sentinels).
 # ---------------------------------------------------------------------------
+
+def pack_wire_raw(abi, mb_w: int, mb_h: int):
+    """Dense numpy ABI -> (raw records dict, own spec tuple), every
+    section in one call of the host library with the GIL released
+    (centropy.pack_wire_records: host/cpp/entropy_wire.inc).
+
+    raw["<field>"] holds compact records (first-k rows only);
+    emit_wire(raw, spec, target, n) renders the upload buffer.
+    raw["full_scans"] counts the coefficient classes whose decode-time
+    row hints were unusable (not ascending, as under ASO), so that every
+    row was scanned.  pack_wire_raw_numpy is its readable twin."""
+    n = mb_w * mb_h
+    cnt, out, srcs = pack_wire_records(abi, n, _COEFF_FIELDS)
+    raw = {"meta6": out("meta6"), "slice8": out("slice8")}
+    spec = []
+
+    k = cnt[WIRE_INTRA_K]
+    sch = ("zero", "sparse", "dense")[cnt[WIRE_INTRA]]
+    spec.append(("intra", sch, _bucket(k, n) if sch == "sparse" else 0))
+    if sch == "dense":
+        raw["in_ext"] = out("in_ext")
+    elif sch == "sparse":
+        raw["in_idx"] = out("in_idx")[:k]
+        raw["in_ext"] = out("in_ext")[:k]
+
+    k = cnt[WIRE_INTER_K]
+    sch = ("zero", "base", "dense")[cnt[WIRE_INTER]]
+    if sch == "dense":
+        spec.append(("inter", "dense", 0))
+        raw["mv16"] = out("mv16")
+        raw["ref8_idx"] = out("ref8")[:, :32]
+        raw["ref8_slot"] = out("ref8")[:, 32:]
+    elif sch == "base":
+        spec.append(("inter", "base", _bucket(k, n // 2 + 1) if k else 0))
+        raw["mv_base"] = out("mv_base")
+        raw["ref_base"] = out("ref_base")
+        if k:
+            raw["nu_idx"] = out("nu_idx")[:k]
+            raw["nu_mv"] = out("nu_mv")[:k]
+            raw["nu_ref"] = out("nu_ref")[:k]
+        raw["nu_k"] = k
+    else:
+        spec.append(("inter", "zero", 0))
+
+    full = 0
+    for c, (f, _key, cpm, w) in enumerate(_COEFF_FIELDS):
+        sch, k, nnz, unusable = cnt[WIRE_CLASS + 4 * c:WIRE_CLASS + 4 * c + 4]
+        sch = ("zero", "bm8", "dense16", "dense")[sch]
+        full += unusable
+        grid = n * cpm
+        spec.append((f, sch, (_bucket(k, grid), _bucket(nnz, grid * w, lo=128))
+                     if sch == "bm8" else 0))
+        if sch == "bm8":
+            raw[f + "_idx"] = out(f + "_idx")[:k]
+            raw[f + "_bm"] = out(f + "_bm")[:k]
+            raw[f + "_val"] = out(f + "_val")[:nnz]
+            raw[f + "_nnz"] = nnz
+        elif sch == "dense16":
+            raw[f + "_src16"] = out(f + "_src16")
+        elif sch == "dense":
+            raw[f + "_src"] = srcs[c]
+
+    k = cnt[WIRE_PCM_K]
+    sch = ("zero", "sparse", "dense")[cnt[WIRE_PCM]]
+    spec.append(("pcm", sch, _bucket(k, n, lo=1) if sch == "sparse" else 0))
+    if sch == "dense":
+        raw["pcm_val"] = out("pcm_val")
+    elif sch == "sparse":
+        raw["pcm_idx"] = out("pcm_idx")[:k]
+        raw["pcm_val"] = out("pcm_val")[:k]
+
+    k = cnt[WIRE_WTAB_K]
+    if k == 0:
+        spec.append(("wtab", "zero", 0))
+    else:
+        spec.append(("wtab", "sparse", _bucket(k, MAX_SLICES, lo=1)))
+        raw["wt_idx"] = out("wt_idx")[:k]
+        raw["wt_val"] = out("wt_val")[:k]
+    raw["full_scans"] = full
+    return raw, tuple(spec)
+
+
+def emit_wire(raw, spec, target, n: int, out: np.ndarray | None = None
+              ) -> np.ndarray:
+    """Raw records (own `spec`) -> ONE uint8 buffer laid out per `target`
+    (a superset spec from merge_specs, or spec itself), written into `out`
+    (a uint8 array of wire_total(target, n) bytes, e.g. a lane's row of a
+    pinned staging tensor) or a new array.  Byte-equal to
+    flatten_wire(conform_sections(sections, spec, target)) by
+    construction (tests/test_torch_wire.py)."""
+    table, total = _offsets(target, n)
+    if out is None:
+        buf = np.zeros(total, np.uint8)
+    else:
+        if out.shape != (total,) or out.dtype != np.uint8:
+            raise ValueError(f"out: {out.dtype} {out.shape}, expected "
+                             f"uint8 ({total},)")
+        buf = out
+        buf[:] = 0
+
+    def view(name):
+        off, dt, shape = table[name]
+        nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+        return buf[off:off + nbytes].view(dt).reshape(shape)
+
+    view("meta6")[:] = raw["meta6"]
+    view("slice8")[:] = raw["slice8"]
+    sd = dict((f, (s, b)) for f, s, b in spec)
+    td = dict((f, (s, b)) for f, s, b in target)
+
+    sch, b = sd["intra"]
+    tsch, tb = td["intra"]
+    if tsch == "dense":
+        if sch == "sparse":
+            view("in_ext")[raw["in_idx"]] = raw["in_ext"]
+        elif sch == "dense":
+            view("in_ext")[:] = raw["in_ext"]
+    elif tsch == "sparse":
+        idx = view("in_idx")
+        idx[:] = n
+        if sch == "sparse":
+            k = len(raw["in_idx"])
+            idx[:k] = raw["in_idx"]
+            view("in_ext")[:k] = raw["in_ext"]
+
+    sch, b = sd["inter"]
+    tsch, tb = td["inter"]
+    if tsch == "dense":
+        mv16 = view("mv16")
+        ref8 = view("ref8")
+        if sch == "dense":
+            mv16[:] = raw["mv16"]
+            ref8[:, :32] = raw["ref8_idx"]
+            ref8[:, 32:] = raw["ref8_slot"]
+        elif sch == "base":
+            mv16[:] = np.tile(raw["mv_base"], 16)
+            rb = raw["ref_base"]
+            ref8[:, :32] = np.repeat(rb[:, 0:2], 16, axis=0) \
+                .reshape(n, 32)
+            ref8[:, 32:] = np.repeat(rb[:, 2:4], 16, axis=0) \
+                .reshape(n, 32)
+            if raw.get("nu_k"):
+                mv16[raw["nu_idx"]] = raw["nu_mv"]
+                ref8[raw["nu_idx"]] = raw["nu_ref"]
+        else:  # zero
+            ref8[:] = -1
+    elif tsch == "base":
+        rbv = view("ref_base")
+        if sch == "base":
+            view("mv_base")[:] = raw["mv_base"]
+            rbv[:] = raw["ref_base"]
+        else:  # zero
+            rbv[:] = -1
+        if tb:
+            idx = view("nu_idx")
+            idx[:] = n
+            if sch == "base" and raw.get("nu_k"):
+                k = raw["nu_k"]
+                idx[:k] = raw["nu_idx"]
+                view("nu_mv")[:k] = raw["nu_mv"]
+                view("nu_ref")[:k] = raw["nu_ref"]
+
+    for f, _key, cpm, w in _COEFF_FIELDS:
+        grid = n * cpm
+        sch, b = sd[f]
+        tsch, tb = td[f]
+        if tsch == "zero":
+            continue
+        if tsch in ("dense", "dense16"):
+            dv = view(f + "_dense")
+            if sch == "bm8":
+                dv[:] = _expand_bm8_np(raw[f + "_idx"], raw[f + "_bm"],
+                                       raw[f + "_val"], grid, w)
+            elif sch in ("dense", "dense16"):
+                dv[:] = raw.get(f + "_src16", raw.get(f + "_src"))
+        else:  # bm8 target
+            idx = view(f + "_idx")
+            idx[:] = grid
+            if sch == "bm8":
+                k = len(raw[f + "_idx"])
+                idx[:k] = raw[f + "_idx"]
+                view(f + "_bm")[:k] = raw[f + "_bm"]
+                view(f + "_val")[:raw[f + "_nnz"]] = raw[f + "_val"]
+
+    sch, b = sd["pcm"]
+    tsch, tb = td["pcm"]
+    if tsch == "dense":
+        if sch == "sparse":
+            view("pcm_val")[raw["pcm_idx"]] = raw["pcm_val"]
+        elif sch == "dense":
+            view("pcm_val")[:] = raw["pcm_val"]
+    elif tsch == "sparse":
+        idx = view("pcm_idx")
+        idx[:] = n
+        if sch == "sparse":
+            k = len(raw["pcm_idx"])
+            idx[:k] = raw["pcm_idx"]
+            view("pcm_val")[:k] = raw["pcm_val"]
+        elif sch == "dense":
+            # own dense cannot conform DOWN to sparse (merge_specs never
+            # shrinks a scheme)
+            raise ValueError("pcm: a dense section cannot conform to a "
+                             "sparse target")
+
+    tsch, tb = td["wtab"]
+    if tsch == "sparse":
+        idx = view("wt_idx")
+        idx[:] = MAX_SLICES
+        if sd["wtab"][0] == "sparse":
+            k = len(raw["wt_idx"])
+            idx[:k] = raw["wt_idx"]
+            view("wt_val")[:k] = raw["wt_val"]
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# the readable twin (tests only): numpy sections at their bucket sizes
+# ---------------------------------------------------------------------------
+
 
 def _pack_meta(abi, n: int, sec: dict):
     m = np.empty((n, 6), np.uint8)
@@ -320,19 +547,10 @@ def _wtab_rows(abi):
     return wt, np.nonzero((wt != identity_wtab()).any(axis=(1, 2, 3, 4)))[0]
 
 
-# ---------------------------------------------------------------------------
-# raw pack + direct emit (the shipped path): scans produce COMPACT records
-# (k rows, no bucket padding), and emit_wire writes every section straight
-# into the upload buffer at its spec offset — one copy per section,
-# conforming to a bigger target spec for free (pad space is just buffer
-# zeros + idx sentinels).
-# ---------------------------------------------------------------------------
-
-def pack_wire_raw(abi, mb_w: int, mb_h: int):
-    """Dense numpy ABI -> (raw records dict, own spec tuple).
-
-    raw["<field>"] holds compact scan outputs (first-k rows only);
-    emit_wire(raw, spec, target, n) renders the upload buffer."""
+def pack_wire_raw_numpy(abi, mb_w: int, mb_h: int):
+    """pack_wire_raw's readable twin and test oracle: numpy and the C row
+    scans, section by section (tests/test_torch_wire.py holds the two
+    byte-equal).  Its raw records carry no "full_scans"."""
     n = mb_w * mb_h
     raw: dict = {}
     spec = []
@@ -418,139 +636,6 @@ def pack_wire_raw(abi, mb_w: int, mb_h: int):
         raw["wt_val"] = wt[rows[:b]].reshape(-1, _WTAB_COLS) \
             .astype(np.int16)
     return raw, tuple(spec)
-
-
-def emit_wire(raw, spec, target, n: int, out: np.ndarray | None = None
-              ) -> np.ndarray:
-    """Raw records (own `spec`) -> ONE uint8 buffer laid out per `target`
-    (a superset spec from merge_specs, or spec itself), written into `out`
-    (a uint8 array of wire_total(target, n) bytes, e.g. a lane's row of a
-    pinned staging tensor) or a new array.  Byte-equal to
-    flatten_wire(conform_sections(sections, spec, target)) by
-    construction (tests/test_torch_wire.py)."""
-    table, total = _offsets(target, n)
-    if out is None:
-        buf = np.zeros(total, np.uint8)
-    else:
-        if out.shape != (total,) or out.dtype != np.uint8:
-            raise ValueError(f"out: {out.dtype} {out.shape}, expected "
-                             f"uint8 ({total},)")
-        buf = out
-        buf[:] = 0
-
-    def view(name):
-        off, dt, shape = table[name]
-        nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
-        return buf[off:off + nbytes].view(dt).reshape(shape)
-
-    view("meta6")[:] = raw["meta6"]
-    view("slice8")[:] = raw["slice8"]
-    sd = dict((f, (s, b)) for f, s, b in spec)
-    td = dict((f, (s, b)) for f, s, b in target)
-
-    sch, b = sd["intra"]
-    tsch, tb = td["intra"]
-    if tsch == "dense":
-        if sch == "sparse":
-            view("in_ext")[raw["in_idx"]] = raw["in_ext"]
-        elif sch == "dense":
-            view("in_ext")[:] = raw["in_ext"]
-    elif tsch == "sparse":
-        idx = view("in_idx")
-        idx[:] = n
-        if sch == "sparse":
-            k = len(raw["in_idx"])
-            idx[:k] = raw["in_idx"]
-            view("in_ext")[:k] = raw["in_ext"]
-
-    sch, b = sd["inter"]
-    tsch, tb = td["inter"]
-    if tsch == "dense":
-        mv16 = view("mv16")
-        ref8 = view("ref8")
-        if sch == "dense":
-            mv16[:] = raw["mv16"]
-            ref8[:, :32] = raw["ref8_idx"]
-            ref8[:, 32:] = raw["ref8_slot"]
-        elif sch == "base":
-            mv16[:] = np.tile(raw["mv_base"], 16)
-            rb = raw["ref_base"]
-            ref8[:, :32] = np.repeat(rb[:, 0:2], 16, axis=0) \
-                .reshape(n, 32)
-            ref8[:, 32:] = np.repeat(rb[:, 2:4], 16, axis=0) \
-                .reshape(n, 32)
-            if raw.get("nu_k"):
-                mv16[raw["nu_idx"]] = raw["nu_mv"]
-                ref8[raw["nu_idx"]] = raw["nu_ref"]
-        else:  # zero
-            ref8[:] = -1
-    elif tsch == "base":
-        rbv = view("ref_base")
-        if sch == "base":
-            view("mv_base")[:] = raw["mv_base"]
-            rbv[:] = raw["ref_base"]
-        else:  # zero
-            rbv[:] = -1
-        if tb:
-            idx = view("nu_idx")
-            idx[:] = n
-            if sch == "base" and raw.get("nu_k"):
-                k = raw["nu_k"]
-                idx[:k] = raw["nu_idx"]
-                view("nu_mv")[:k] = raw["nu_mv"]
-                view("nu_ref")[:k] = raw["nu_ref"]
-
-    for f, _key, cpm, w in _COEFF_FIELDS:
-        grid = n * cpm
-        sch, b = sd[f]
-        tsch, tb = td[f]
-        if tsch == "zero":
-            continue
-        if tsch in ("dense", "dense16"):
-            dv = view(f + "_dense")
-            if sch == "bm8":
-                dv[:] = _expand_bm8_np(raw[f + "_idx"], raw[f + "_bm"],
-                                       raw[f + "_val"], grid, w)
-            elif sch in ("dense", "dense16"):
-                dv[:] = raw.get(f + "_src16", raw.get(f + "_src"))
-        else:  # bm8 target
-            idx = view(f + "_idx")
-            idx[:] = grid
-            if sch == "bm8":
-                k = len(raw[f + "_idx"])
-                idx[:k] = raw[f + "_idx"]
-                view(f + "_bm")[:k] = raw[f + "_bm"]
-                view(f + "_val")[:raw[f + "_nnz"]] = raw[f + "_val"]
-
-    sch, b = sd["pcm"]
-    tsch, tb = td["pcm"]
-    if tsch == "dense":
-        if sch == "sparse":
-            view("pcm_val")[raw["pcm_idx"]] = raw["pcm_val"]
-        elif sch == "dense":
-            view("pcm_val")[:] = raw["pcm_val"]
-    elif tsch == "sparse":
-        idx = view("pcm_idx")
-        idx[:] = n
-        if sch == "sparse":
-            k = len(raw["pcm_idx"])
-            idx[:k] = raw["pcm_idx"]
-            view("pcm_val")[:k] = raw["pcm_val"]
-        elif sch == "dense":
-            # own dense cannot conform DOWN to sparse (merge_specs never
-            # shrinks a scheme)
-            raise ValueError("pcm: a dense section cannot conform to a "
-                             "sparse target")
-
-    tsch, tb = td["wtab"]
-    if tsch == "sparse":
-        idx = view("wt_idx")
-        idx[:] = MAX_SLICES
-        if sd["wtab"][0] == "sparse":
-            k = len(raw["wt_idx"])
-            idx[:k] = raw["wt_idx"]
-            view("wt_val")[:k] = raw["wt_val"]
-    return buf
 
 
 def pack_wire(abi, mb_w: int, mb_h: int):

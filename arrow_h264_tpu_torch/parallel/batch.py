@@ -295,8 +295,11 @@ class BatchDecoder:
                 if self.upload == "dense" or "wp" in abi:
                     return abi, None
                 sps = pending[i][0].sps
-                return abi, pack_wire_raw(abi, sps.pic_width_in_mbs,
+                raw, spec = pack_wire_raw(abi, sps.pic_width_in_mbs,
                                           sps.pic_height_in_map_units)
+                self.decoders[i].stats.pack_full_scans += \
+                    raw["full_scans"] > 0
+                return abi, (raw, spec)
             except Exception as e:
                 fail(i, e)
                 return None
@@ -332,6 +335,7 @@ class BatchDecoder:
             wires = {i: p[1] for i, p in packed.items()
                      if p is not None and p[1] is not None}
             del packed
+            full_scans = sum(w[0]["full_scans"] > 0 for w in wires.values())
             if abis and self._params is None:
                 pic = pending[next(iter(abis))][0]
                 self._init_device(
@@ -434,7 +438,7 @@ class BatchDecoder:
             if on:
                 t = recorder.mark("parse_wait", t, rid, call, r, wait)
                 attrs.update(live=len(live), committed=len(todo),
-                             output=n_out)
+                             output=n_out, full_scans=full_scans)
                 recorder.add("round", t_round, t, did, call, r, -1, rid,
                              attrs)
 

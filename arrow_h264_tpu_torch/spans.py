@@ -25,8 +25,9 @@ span is (call, round, lane); call counts decode calls since import):
   `store`, `output` (the copies queued and the previous round's waited
   for, or the on_frame calls) and `parse_wait` (the pool's parse of the
   next round's pictures).  A round's `attrs`: live lanes, pictures
-  committed, frames output, the upload ("wire" or "dense") and the
-  bytes shipped;
+  committed, frames output, the upload ("wire" or "dense"), the bytes
+  shipped and the lanes whose wire pack scanned rows in full
+  (`full_scans`, DecodeStats.pack_full_scans);
 - pool threads: `lane.parse`, `lane.pack`, `lane.emit`, each a child of
   the main-thread wait that submitted it;
 - `frame_out`, an instant (t0 == t1) a frame that leaves the decoder;

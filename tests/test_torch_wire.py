@@ -26,7 +26,9 @@ from arrow_h264_tpu_torch.models.pipeline import (
 )
 from arrow_h264_tpu_torch.ops import wire
 from arrow_h264_tpu_torch.ops.abi import empty_frame_abi
-from arrow_h264_tpu_torch.ops.synthetic import synthetic_abi, synthetic_abi_p
+from arrow_h264_tpu_torch.ops.synthetic import (
+    random_wire_abi, synthetic_abi, synthetic_abi_p,
+)
 from arrow_h264_tpu_torch.ops.transforms import COEFF_KEYS
 from tests.torch_ref import decode_port
 from tools import field_streams as FS
@@ -506,3 +508,305 @@ def test_decoder_wire_equals_dense_fields(h264ref, tmp_path, name,
 def test_decoder_upload_checked():
     with pytest.raises(ValueError, match="upload 'bogus'"):
         Decoder(device="cpu", upload="bogus")
+
+
+# ---- the C pack (pack_wire_raw) against its numpy twin ------------------
+
+# every committed stream the port decodes, and the hand-written field
+# streams (tools/field_streams.py), by name
+C_PACK_STREAMS = sorted(p.stem for p in DATA.glob("*.264")) + [
+    "field_" + k for k in FIELD_STREAMS]
+
+
+def _each_picture(data: bytes, on_picture, monkeypatch, **kw):
+    """Run Decoder(device="cpu", **kw) over `data` with the device step
+    replaced by zero planes: on_picture(abi, mb_w, mb_h) sees each
+    picture's host ABI as the upload does (concealed where the decoder
+    conceals), before the next picture's parse reuses its buffers."""
+    def step(self, abi):
+        on_picture(abi, self.mb_w, self.mb_h)
+        self.last_upload = ("wire", 0)
+        self.last_full_scans = 0
+        h, w = 16 * self.mb_h, 16 * self.mb_w
+        return (torch.zeros((h, w), dtype=torch.uint8),
+                torch.zeros((h // 2, w // 2), dtype=torch.uint8),
+                torch.zeros((h // 2, w // 2), dtype=torch.uint8))
+
+    monkeypatch.setattr(tpipeline.DevicePipeline, "decode_frame", step)
+    return list(Decoder(device="cpu", **kw).decode_annexb(data))
+
+
+def _assert_packs_equal(abi, mb_w: int, mb_h: int, targets=()):
+    """pack_wire_raw equals pack_wire_raw_numpy on `abi`: the spec, every
+    raw record (but the C pack's full_scans count) and emit_wire's bytes
+    under the own spec and under each superset target merged from
+    `targets` (specs).  Returns (raw, spec) of the C pack."""
+    n = mb_w * mb_h
+    raw, spec = wire.pack_wire_raw(abi, mb_w, mb_h)
+    oraw, ospec = wire.pack_wire_raw_numpy(abi, mb_w, mb_h)
+    assert spec == ospec
+    assert set(raw) - {"full_scans"} == set(oraw)
+    for k, v in oraw.items():
+        assert np.array_equal(np.asarray(raw[k]), np.asarray(v)), k
+    for t in (spec,) + tuple(wire.merge_specs([spec, s]) for s in targets):
+        assert np.array_equal(wire.emit_wire(raw, spec, t, n),
+                              wire.emit_wire(oraw, ospec, t, n)), t
+    return raw, spec
+
+
+@pytest.mark.parametrize("name", C_PACK_STREAMS)
+def test_c_pack_matches_numpy_on_streams(name, monkeypatch):
+    """Every picture of every committed stream (concealed where its JSON
+    lists concealment) and of the hand-written field streams: the C pack
+    is byte-equal to the numpy twin under the picture's own spec and
+    under the merge of every spec of the stream so far, and it scans rows
+    in full where, and only where, the parser's row hints do not ascend
+    (slice groups, arbitrary slice order)."""
+    if name.startswith("field_") and name[6:] in FIELD_STREAMS:
+        data, kw = FIELD_STREAMS[name[6:]][0](), {}
+    else:
+        meta = json.loads((DATA / f"{name}.json").read_text())
+        data = (DATA / f"{name}.264").read_bytes()
+        kw = {"conceal": "concealed" in meta}
+    specs = []
+
+    def check(abi, mb_w, mb_h):
+        if "wp" in abi:                 # dense weights: uploaded dense
+            return
+        raw, spec = _assert_packs_equal(
+            abi, mb_w, mb_h, [wire.merge_specs(specs)] if specs else [])
+        hints = abi["_nzr"].values()
+        assert (raw["full_scans"] > 0) == any(
+            np.any(np.diff(h) <= 0) for h in hints)
+        specs.append(spec)
+
+    _each_picture(data, check, monkeypatch, **kw)
+    assert specs
+
+
+def _hinted(abi, order=None):
+    """abi with decode-time row hints ("_nzr") listing each coefficient
+    class's nonzero rows, as the C parser records them; order(f, rows)
+    may rewrite a class's list."""
+    abi = dict(abi)
+    n = MB_W * MB_H
+    nzr = {}
+    for f, key, cpm, w in wire._COEFF_FIELDS:
+        rows = np.nonzero(np.asarray(abi[key]).reshape(n * cpm, w).any(1))[0]
+        nzr[f] = np.asarray(rows if order is None else order(f, rows),
+                            np.int32)
+    abi["_nzr"] = nzr
+    return abi
+
+
+def _levels(key, rows, value, width=None):
+    """An empty picture whose class `key` has `value` at the first
+    `width` (default: every) values of each of `rows` rows."""
+    abi = empty_frame_abi(MB_W, MB_H)
+    flat = abi[key].reshape(-1, {"luma4": 16, "luma8": 64}[key])
+    flat[:rows, :width] = value
+    return abi
+
+
+def _all_pcm():
+    abi = empty_frame_abi(MB_W, MB_H)
+    abi["kind"][:] = 3
+    abi["pcm"][:] = np.arange(384) * 7 % 256
+    return abi
+
+
+def _rw(seed, **kw):
+    """A maker of random_wire_abi(MB_W, MB_H, seed, **kw)."""
+    return lambda: random_wire_abi(MB_W, MB_H, seed, **kw)
+
+
+N_ROWS = MB_W * MB_H * 16          # l4 rows of the 11 x 9 picture
+CAP_R = N_ROWS // 2 + 1
+# case -> (ABI maker, spec schemes the pack must choose, full_scans)
+C_PACK_CASES = {
+    "intra_zero": (_rw(1, intra="zero"), {"intra": "zero"}, 0),
+    "intra_sparse": (_rw(2, intra="sparse"), {"intra": "sparse"}, 0),
+    "intra_dense": (_rw(3, intra="dense"), {"intra": "dense"}, 0),
+    "inter_zero": (_rw(4, inter="zero"), {"inter": "zero"}, 0),
+    "inter_base": (_rw(5, inter="base"), {"inter": "base"}, 0),
+    "inter_base_nonuniform_nx_flag": (_rw(6, inter="nu"),
+                                      {"inter": "base"}, 0),
+    "inter_dense_nx_flag": (_rw(7, inter="dense"), {"inter": "dense"}, 0),
+    "coeff_zero": (_rw(8, coeff="zero"), {"l4": "zero", "cdc": "zero"}, 0),
+    "coeff_bm8": (_rw(9, coeff="bm8"), {"l4": "bm8", "ca": "bm8"}, 0),
+    "coeff_dense16_by_rows": (_rw(10, coeff="dense16"), {"l4": "dense16"},
+                              0),
+    "coeff_dense_int32": (_rw(11, coeff="dense"), {"l4": "dense"}, 0),
+    "coeff_int8_overflow_dense16": (lambda: _levels("luma4", 3, 300),
+                                    {"l4": "dense16"}, 0),
+    "coeff_value_cap_dense16": (lambda: _levels("luma4", CAP_R - 1, 5),
+                                {"l4": "dense16"}, 0),
+    "l8_bm8": (lambda: _levels("luma8", 5, -7, 9), {"l8": "bm8"}, 0),
+    "l8_int16_overflow_dense": (lambda: _levels("luma8", 2, 70000),
+                                {"l8": "dense"}, 0),
+    "pcm_sparse": (_rw(12, pcm="sparse"), {"pcm": "sparse"}, 0),
+    "pcm_dense": (_all_pcm, {"pcm": "dense"}, 0),
+    "wtab_sparse": (_rw(13, wtab="sparse"), {"wtab": "sparse"}, 0),
+    "wtab_zero": (_rw(14, wtab="zero"), {"wtab": "zero"}, 0),
+    "hints_gathered": (lambda: _hinted(random_wire_abi(MB_W, MB_H, 15)),
+                       {"l4": "bm8"}, 0),
+    "hints_reach_row_cap_dense16": (
+        lambda: _hinted(_levels("luma4", CAP_R + 3, 2)), {"l4": "dense16"},
+        0),
+    "hints_past_cap_mostly_zero_rows_bm8": (
+        lambda: _hinted(_levels("luma4", 4, 2),
+                        lambda f, r: np.arange(CAP_R + 9) if f == "l4"
+                        else r), {"l4": "bm8"}, 0),
+    "hints_past_cap_rows_just_under_cap_bm8": (
+        lambda: _hinted(_levels("luma4", CAP_R - 2, 3, 1),
+                        lambda f, r: np.arange(CAP_R + 9) if f == "l4"
+                        else r), {"l4": "bm8"}, 0),
+    "hints_unsorted_full_scan": (
+        lambda: _hinted(random_wire_abi(MB_W, MB_H, 16),
+                        lambda f, r: r[::-1] if f == "l4" else r),
+        {"l4": "bm8"}, 1),
+    "hints_out_of_range_full_scan": (
+        lambda: _hinted(random_wire_abi(MB_W, MB_H, 17),
+                        lambda f, r: np.append(r, N_ROWS) if f == "l4"
+                        else r), {"l4": "bm8"}, 1),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _superset_specs():
+    """Specs to merge each case's spec with: every section dense but pcm,
+    and pcm dense."""
+    heavy = random_wire_abi(MB_W, MB_H, 99, intra="dense", inter="dense",
+                            coeff="dense")
+    return (wire.pack_wire_raw_numpy(heavy, MB_W, MB_H)[1],
+            wire.pack_wire_raw_numpy(_all_pcm(), MB_W, MB_H)[1])
+
+
+@pytest.mark.parametrize("case", C_PACK_CASES)
+def test_c_pack_matches_numpy_on_schemes(case):
+    """Synthetic pictures force each scheme of each section (and the row
+    hints' paths: gathered, dense from the hints' count alone, past the
+    row cap but mostly zero rows, unusable): the C pack is byte-equal to
+    the numpy twin under its own spec and under dense targets, chooses
+    the case's schemes, and counts the classes it scanned in full."""
+    make, schemes, full = C_PACK_CASES[case]
+    abi = make()
+    raw, spec = _assert_packs_equal(abi, MB_W, MB_H, _superset_specs())
+    d = {f: s for f, s, _ in spec}
+    assert {f: d[f] for f in schemes} == schemes
+    assert raw["full_scans"] == full
+    if "nx_flag" in case:              # slot 2 holds a gap picture
+        slots = raw["ref8_slot"] if d["inter"] == "dense" else \
+            np.concatenate([raw["ref_base"][:, 2:].ravel(),
+                            raw["nu_ref"][:, 32:].ravel()])
+        assert (np.asarray(slots) & wire.NX_FLAG).any()
+    if case.startswith("intra") or case.startswith("inter"):
+        dbo = abi["deblock_off"].astype(bool)
+        assert dbo.any() and not dbo.all()
+
+
+def test_unsorted_hints_counted_in_decodes(monkeypatch):
+    """Row hints that do not ascend (reversed here, as arbitrary slice
+    order leaves them) take the full scan: the frames stay equal to the
+    goldens, Decoder's and BatchDecoder's pack_full_scans count every
+    such picture, and so do the rounds' full_scans attrs; with the
+    parser's own hints every count is 0."""
+    from arrow_h264_tpu_torch.parallel.batch import BatchDecoder
+    from arrow_h264_tpu_torch.spans import recorder
+    names = ["batch_qcif_s3", "batch_qcif_s1"]
+    datas = [(DATA / f"{n}.264").read_bytes() for n in names]
+    md5s = [json.loads((DATA / f"{n}.json").read_text())["md5"]
+            for n in names]
+    hints = centropy.CppPictureParse.nz_row_hints
+
+    def counts():
+        dec = Decoder(device="cpu")
+        got = [hashlib.md5(f.planar()).hexdigest()
+               for f in dec.decode_annexb(datas[0])]
+        assert got == md5s[0]
+        recorder.disable()
+        recorder.drain()
+        recorder.enable()
+        try:
+            with BatchDecoder(2, device="cpu") as bd:
+                frames = bd.decode(datas)
+        finally:
+            recorder.disable()
+        rounds = [s.attrs for s in recorder.drain() if s.name == "round"]
+        assert [[hashlib.md5(f.planar()).hexdigest() for f in lane]
+                for lane in frames] == md5s
+        return (dec.stats.pack_full_scans, dec.stats.frames,
+                [s["pack_full_scans"] for s in bd.stats],
+                sum(a.get("full_scans", 0) for a in rounds))
+
+    assert counts() == (0, 5, [0, 0], 0)
+    monkeypatch.setattr(centropy.CppPictureParse, "nz_row_hints",
+                        lambda self: {f: h[::-1]
+                                      for f, h in hints(self).items()})
+    assert counts() == (5, 5, [5, 3], 8)
+
+
+def _picture_copies(name: str, monkeypatch) -> list:
+    """(ABI, mb_w, mb_h) of each picture of a committed stream, copied
+    out of the parser's pooled buffers (hints included)."""
+    out = []
+
+    def keep(abi, mb_w, mb_h):
+        a = {k: np.copy(v) if isinstance(v, np.ndarray) else v
+             for k, v in abi.items() if k != "_nzr"}
+        a["_nzr"] = {f: np.copy(h) for f, h in abi["_nzr"].items()}
+        out.append((a, mb_w, mb_h))
+
+    _each_picture((DATA / f"{name}.264").read_bytes(), keep, monkeypatch)
+    return out
+
+
+def test_c_pack_threads_equal_serial(monkeypatch):
+    """16 threads pack different pictures at once, 4 times each, with the
+    interpreter switching threads as often as it can: every spec and
+    every emitted buffer equals the serial pack's (h264e_pack_wire keeps
+    no state between calls, so the pool's lanes may pack together)."""
+    import sys
+    import threading
+    pics = (_picture_copies("batch_qcif_s3", monkeypatch)
+            + _picture_copies("feat_lossless_qcif", monkeypatch)
+            + [(random_wire_abi(MB_W, MB_H, 40 + i, intra=a, inter=b,
+                                coeff=c), MB_W, MB_H)
+               for i, (a, b, c) in enumerate(
+                   [("dense", "dense", "dense"), ("sparse", "nu", "bm8"),
+                    ("zero", "base", "dense16"), ("sparse", "zero", "bm8"),
+                    ("dense", "nu", "zero"), ("sparse", "dense", "bm8")])])
+    assert len(pics) == 16
+
+    def pack(abi, mb_w, mb_h):
+        raw, spec = wire.pack_wire_raw(abi, mb_w, mb_h)
+        return spec, wire.emit_wire(raw, spec, spec, mb_w * mb_h).tobytes()
+
+    want = [pack(*p) for p in pics]
+    got = [[] for _ in pics]
+    errors = []
+    start = threading.Barrier(len(pics))
+
+    def work(i):
+        try:
+            start.wait(timeout=60)
+            for _ in range(4):
+                got[i].append(pack(*pics[i]))
+        except BaseException as e:       # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(len(pics))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    for i, w in enumerate(want):
+        assert got[i] == [w] * 4, i
