@@ -39,6 +39,7 @@ from .host import centropy
 from .mb.parse import PictureParse
 from .models.pipeline import ORDERS, UPLOADS, DevicePipeline
 from .ops.abi import pack_frame
+from .spans import now, recorder
 from .trace import (
     dump_se_log, trace_frame_abi, trace_se_target, trace_slice_header,
     trace_target, trace_upload,
@@ -142,6 +143,9 @@ class DecodeStats:
     pack_full_scans: int = 0        # wire-packed pictures whose decode-time
                                     # row hints were unusable (not ascending,
                                     # as under ASO): rows scanned in full
+    field_pictures: int = 0         # committed pictures that are fields
+    weave_s: float = 0.0            # weaving field pairs into frames (the
+                                    # calling thread's seconds in _emit)
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -195,6 +199,9 @@ class Decoder:
         self._gap_bumped: list = []
         # set by BatchDecoder: _emit returns PendingFrames (no sync)
         self.deferred_emit = False
+        # (parent, call, round, lane) of the `weave` spans that _emit
+        # records with spans.recorder on; BatchDecoder sets it
+        self.span_ctx = (0, -1, -1, -1)
 
     def _pipeline(self, sps: SPS, pps: PPS) -> DevicePipeline:
         key = (sps.seq_parameter_set_id, pps.pic_parameter_set_id,
@@ -362,6 +369,7 @@ class Decoder:
                 yield self._emit(planes)
             self._gap_bumped.clear()
         hdr = pic.headers[0]
+        self.stats.field_pictures += hdr.field_pic_flag
         # the payload keeps DEVICE tensors: _emit copies to the host at
         # output time
         payload = (y, cb, cr, pic.sps, poc)
@@ -405,14 +413,21 @@ class Decoder:
     def _emit(self, planes):
         """Output planes -> Frame, or PendingFrame with deferred_emit.  A
         field pair (dpb.WovenPair) is woven on the device into one frame
-        with the smaller POC of the two."""
+        with the smaller POC of the two (stats.weave_s; a `weave` span
+        with the recorder on)."""
         if isinstance(planes, WovenPair):
+            t0 = now()
             (yt, cbt, crt, sps, poct), (yb, cbb, crb, _, pocb) = \
                 planes.top, planes.bottom
             y, cb, cr = (torch.stack((t, b), 1).reshape(2 * t.shape[0],
                                                         t.shape[1])
                          for t, b in ((yt, yb), (cbt, cbb), (crt, crb)))
             planes = (y, cb, cr, sps, min(poct, pocb))
+            t1 = now()
+            self.stats.weave_s += (t1 - t0) / 1e9
+            if recorder.enabled:
+                parent, call, rnd, lane = self.span_ctx
+                recorder.add("weave", t0, t1, parent, call, rnd, lane)
         y, cb, cr, sps, poc = planes
         if self.deferred_emit:
             return PendingFrame(y, cb, cr, sps, poc)

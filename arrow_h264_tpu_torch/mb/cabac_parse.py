@@ -32,11 +32,12 @@ LAST8x8 = [0] + [1] * 15 + [2] * 16 + [3] * 8 + [4] * 8 + [5] * 4 + \
     [6] * 4 + [7] * 4 + [8] * 3
 
 # 8x8 significance increments for FIELD-coded pictures (Table 9-43 field
-# column); last_significant shares LAST8x8 between frame and field.
-SIG8x8_FIELD = [0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8,
-                4, 5, 6, 9, 10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 11,
-                12, 11, 9, 9, 10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 13,
-                13, 9, 9, 10, 10, 8, 13, 13, 9, 9, 10, 10, 14, 14, 14]
+# column, validated against libavcodec on CABAC field streams);
+# last_significant shares LAST8x8 between frame and field.
+SIG8x8_FIELD = [0, 1, 1, 2, 2, 3, 3, 4, 5, 6, 7, 7, 7, 8, 4, 5,
+                6, 9, 10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 11, 12, 11,
+                9, 9, 10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 13, 13, 9,
+                9, 10, 10, 8, 13, 13, 9, 9, 10, 10, 14, 14, 14, 14, 14]
 
 # ctxBlockCat offsets (spec Table 9-40)
 SIG_CAT_OFF = {0: 0, 1: 15, 2: 29, 3: 44, 4: 47}

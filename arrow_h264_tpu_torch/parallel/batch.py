@@ -383,12 +383,15 @@ class BatchDecoder:
             # collected and written by one batched store
             lanes, slots = [], []
             mark = [len(f) for f in frames]
+            cid = recorder.new_id() if on else 0
             for i in live:
                 def rec(slot, y, cb, cr, i=i):
                     lanes.append(i)
                     slots.append(slot)
 
                 s, j = shard_of[i]
+                if on:
+                    self.decoders[i].span_ctx = (cid, call, r, i)
                 try:
                     frames[i].extend(self.decoders[i].commit(
                         *pending[i], *(p[j] for p in planes[s]),
@@ -407,12 +410,15 @@ class BatchDecoder:
                     dispatch_s / len(live)
             abis.clear()   # release ABI views so parse buffers can recycle
             todo = [i for i in live if self.errors[i] is None]
+            if on:
+                fields = sum(pending[i][0].headers[0].field_pic_flag
+                             for i in todo)
             for i in todo:
                 pending[i] = None
             if on:
                 recorder.add("upload", t0, t1, rid, call, r, sid=uid)
                 recorder.add("step", t1, t2, rid, call, r)
-                recorder.add("commit", t2, t3, rid, call, r)
+                recorder.add("commit", t2, t3, rid, call, r, sid=cid)
                 recorder.add("store", t3, t4, rid, call, r)
 
             new = [(i, j) for i in range(B)
@@ -438,13 +444,17 @@ class BatchDecoder:
             if on:
                 t = recorder.mark("parse_wait", t, rid, call, r, wait)
                 attrs.update(live=len(live), committed=len(todo),
-                             output=n_out, full_scans=full_scans)
+                             output=n_out, full_scans=full_scans,
+                             fields=fields)
                 recorder.add("round", t_round, t, did, call, r, -1, rid,
                              attrs)
 
+        fid = recorder.new_id() if on else 0
         for i in range(B):
             d = self.decoders[i]
             if self.errors[i] is None and d.dpb is not None:
+                if on:
+                    d.span_ctx = (fid, call, -1, i)
                 tail = len(frames[i])
                 frames[i].extend(d._emit(p) for p in d.dpb.flush())
                 if not self.materialize:
@@ -459,7 +469,7 @@ class BatchDecoder:
             for i, j in rest:
                 self._finalize_timed(i, j, frames, did, call, -1)
         if on:
-            t = recorder.mark("flush", t, did, call)
+            t = recorder.mark("flush", t, did, call, sid=fid)
             recorder.add("decode", t_call, t, 0, call, sid=did)
         return frames
 

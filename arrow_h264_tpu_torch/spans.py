@@ -26,8 +26,13 @@ span is (call, round, lane); call counts decode calls since import):
   for, or the on_frame calls) and `parse_wait` (the pool's parse of the
   next round's pictures).  A round's `attrs`: live lanes, pictures
   committed, frames output, the upload ("wire" or "dense"), the bytes
-  shipped and the lanes whose wire pack scanned rows in full
-  (`full_scans`, DecodeStats.pack_full_scans);
+  shipped, the lanes whose wire pack scanned rows in full
+  (`full_scans`, DecodeStats.pack_full_scans) and the field pictures
+  committed (`fields`, 0 in a batch of frame streams; summed over lanes
+  in DecodeStats.field_pictures);
+- `weave`: api.Decoder._emit weaving a field pair into one frame on the
+  device (DecodeStats.weave_s sums them), a child of the `commit` that
+  output the pair, or of `flush`, with its lane;
 - pool threads: `lane.parse`, `lane.pack`, `lane.emit`, each a child of
   the main-thread wait that submitted it;
 - `frame_out`, an instant (t0 == t1) a frame that leaves the decoder;

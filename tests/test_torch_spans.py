@@ -150,6 +150,16 @@ def test_frame_out_marks_every_frame_returned(runs, kind):
     assert outs == {i: len(f) for i, f in enumerate(frames)}
 
 
+def test_frame_batch_has_no_field_counts(runs):
+    """Frame streams: every round's `fields` is 0, no `weave` span, and
+    the lanes' field counters stay 0."""
+    rounds = [s for s in runs["spans"] if s.name == "round"]
+    assert rounds and all(r.attrs["fields"] == 0 for r in rounds)
+    assert not [s for s in runs["spans"] if s.name == "weave"]
+    assert [(s["field_pictures"], s["weave_s"]) for s in runs["bd"].stats] \
+        == [(0, 0.0)] * len(LANES)
+
+
 def test_span_holds_a_profiler_event_on_its_clock():
     """A span around a record_function region contains that event, under
     a CPU-activity profiler, within 1 ms after conversion to Unix ns."""

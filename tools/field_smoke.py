@@ -66,17 +66,20 @@ I16_BASE = {"I": 0, "P": 5, "B": 23}
 
 def _pairs(structure: str) -> list[tuple]:
     """(kind, display index, frame_num, is reference) of each field pair
-    in decode order: a B pair is non-reference and displayed just before
-    the pair that precedes it in decode order."""
-    out, frame_num, disp = [], 0, 0
+    in decode order: B pairs are non-reference, and a run of them is
+    displayed, in decode order, just before the reference pair that
+    precedes the run in decode order ("IPBBP": display 0, 3, 1, 2, 4)."""
+    out, frame_num, disp, b_disp = [], 0, 0, 0
     for i, kind in enumerate(structure):
         if kind == "B":
-            out.append((kind, disp - 2, frame_num, False))
+            out.append((kind, b_disp, frame_num, False))
+            b_disp += 1
             continue
-        before_b = structure[i + 1:i + 2] == "B"
-        out.append((kind, disp + before_b, frame_num, True))
+        n_b = len(structure[i + 1:]) - len(structure[i + 1:].lstrip("B"))
+        out.append((kind, disp + n_b, frame_num, True))
+        b_disp = disp
         frame_num += 1
-        disp += 1 + before_b
+        disp += 1 + n_b
     return out
 
 
